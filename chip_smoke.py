@@ -5,19 +5,28 @@ Run from the repository root, with one CUDA card visible::
 
     python3 chip_smoke.py
 
-It builds the port's hand-written CUDA kernels from ``src/.../csrc/``, holds
-each one against its plain PyTorch version at the shapes of the main path,
-then drives the main path once at production width through the entry points a
-user calls (``fit_emulators`` -> ``build_likelihood`` -> ``run_mcmc``) and
-checks what comes out. One line per phase; the line before the last is the
-card's name and power limit as ``nvidia-smi`` reports them, the line before
-that the kernels' JSON record, and the last line ``{"ok": true, ...}``. Any
-failed check raises, so the script exits non-zero and prints no result. It
-also exits non-zero without a CUDA device or outside a repository checkout.
+It builds the port's hand-written CUDA kernels from ``src/.../csrc/`` (one
+``nvcc`` per source, all at once), holds each one against its plain PyTorch
+version at the shapes of the paths that run it, then drives those paths at
+production width through the entry points a user calls, each with the kernel
+launch counts set to 0 just before it and read just after:
+
+- fit then sample: ``fit_emulators`` -> ``build_likelihood`` (block mode) ->
+  ``run_mcmc``;
+- one lowrank (Woodbury) analysis: ``run_mcmc(mode="lowrank")`` on the same
+  fitted emulators;
+- the closure-test batch: ``run_closure_batch`` over the 30 validation
+  points, in lowrank and in block mode.
+
+One line per phase; the line before the last is the card's name and power
+limit as ``nvidia-smi`` reports them, the line before that the kernels' JSON
+record, and the last line ``{"ok": true, ...}``. Any failed check raises, so
+the script exits non-zero and prints no result. It also exits non-zero
+without a CUDA device or outside a repository checkout.
 
 The run needs no ``h5py`` and no ``yaml``: the configuration is a dict, the
 observables come straight from the table ingest, the emulator artifacts stay
-in memory and ``run_mcmc`` is called with ``write=False``.
+in memory and the runners are called with ``write=False``.
 """
 
 from __future__ import annotations
@@ -38,7 +47,8 @@ WORK_DIR = REPO / "build" / "chip_smoke"
 # Production widths (bench.py): three emulation groups with 5 + 11 + 25 PCs
 # over the synthetic production table set, 50 + 1 restarts, 60 L-BFGS
 # iterations, 100 walkers. Sampling is cut to 2 x 100 burn-in and 2,000
-# production steps.
+# production steps; the closure batch to 1,000 (lowrank) and 500 (block)
+# production steps over the 30 validation points [200, 230).
 PRODUCTION_GROUPS = {
     "jet_group": {"n_pc": 5, "observable_list": ["jet__pt_"]},
     "substructure_groomed_group": {"n_pc": 11, "observable_list": ["chjet__zg_", "chjet__tg_"]},
@@ -47,6 +57,8 @@ PRODUCTION_GROUPS = {
 ANALYSIS, PARAMETERIZATION = "smoke", "exponential"
 N_RESTARTS, N_OPT_ITERS = 50, 60
 N_WALKERS, N_BURN, N_STEPS = 100, 200, 2000
+CLOSURE_STEPS = {"lowrank": 1000, "block": 500}
+N_PCS = 41
 
 # Tolerances, each with its reason:
 # - K3 (f32 Cholesky and inverse of Matern grams, condition numbers up to
@@ -58,10 +70,26 @@ K3_TOL_L, K3_TOL_LINV = 1e-4, 2e-3
 # - K1 (f32 assembly + 8-24-wide Cholesky, summed over 144 blocks): the plain
 #   f32 path lies within ~1e-7 of float64 relative to the largest |ll|.
 K1_TOL = 1e-5
+# - K4 (f32 41 x 41 capacitance matrices M = G + diag(1/v)), per instance,
+#   |ll - ll_64| / (|quad_64| / 2 + |half_logdet_64|): the f32 sweep carries
+#   about cond(M) * eps of relative error into each term, and these M reach
+#   condition numbers of ~1e3.
+K4_TOL = 1e-4
 # - The slice's log-posterior at 64 posterior points, f32 kernels against the
 #   float64 plain path on the same emulators: the f32 GP predictive variance
-#   k** - k*^T K^-1 k* cancels against ||K^-1|| ~ 1/noise.
+#   k** - k*^T K^-1 k* cancels against ||K^-1|| ~ 1/noise. The same bar holds
+#   the lowrank log-posterior, whose Woodbury quadratic c0 + 2 b.z + z G z -
+#   r^T M^-1 r also cancels in f32.
 LOGP_TOL = 1e-3
+# - The closure batch's log-posterior of each point against a likelihood
+#   built for that point alone, both f32 on the card at the same positions:
+#   the same algorithm, rounded differently by cuBLAS at the two batch shapes.
+CLOSURE_LOGP_TOL = 1e-4
+# - Device tau (f32 torch.fft) against the host estimator on the downloaded
+#   chains (f32 scipy FFT, f64 walker sums): both compute the exact linear ACF;
+#   rounding can move Sokal's window by a lag near its edge. Split-R-hat:
+#   f32 moments after global centering against the host's f64 sums.
+TAU_RTOL, RHAT_ATOL = 1e-2, 1e-4
 # - The f32 fit's LML at its optimum against a float64 recompute at the same
 #   hyperparameters: the repo's fit-parity bar (docs/fit_schedule_study.json).
 LML_TOL_NAT = 0.1
@@ -107,6 +135,15 @@ def normwise_rel(a: torch.Tensor, ref: torch.Tensor) -> float:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def reset(kernels) -> None:
+    for k in kernels.values():
+        k.launches = 0
+
+
+def counts(kernels) -> dict[str, int]:
+    return {name: k.launches for name, k in kernels.items()}
 
 
 def matern_blocks(B: int, n: int, device, seed: int = 0) -> torch.Tensor:
@@ -166,9 +203,11 @@ def phase_k3(device, B: int = 41 * 51, reps: int = 20) -> dict:
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
 
 
-def mvn_buckets(W: int, device, dtype, seed: int = 1, k: int = 41):
+def mvn_buckets(W: int, device, dtype, seed: int = 1, k: int = N_PCS, n_points: int = 0):
     """Bucketed block-likelihood operands shaped like the production buckets
-    ({8: 40, 16: 96, 24: 8} blocks, k PCs) and per-walker PC means/variances."""
+    ({8: 40, 16: 96, 24: 8} blocks, k PCs) and per-walker PC means/variances.
+    With ``n_points``, each bucket's d0 is (n_points, n_obs_b, nb), one offset
+    table per point, and the W walkers are split evenly over the points."""
     from bayesian_inference_tpu_torch.mcmc.likelihood import bucketize_blocks
 
     rng = np.random.default_rng(seed)
@@ -179,12 +218,14 @@ def mvn_buckets(W: int, device, dtype, seed: int = 1, k: int = 41):
     for w in widths:
         A = rng.normal(size=(w, w)) * 0.05
         D.append(A @ A.T + np.diag(rng.uniform(0.005, 0.05, w)))
-    d0 = [rng.normal(size=w) * 0.2 for w in widths]
+    d0 = [rng.normal(size=(max(n_points, 1), w)) * 0.2 for w in widths]
     z = rng.normal(size=(W, k)) * colscale
     v = rng.uniform(1e-3, 0.1, (W, k)) * colscale
     t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
-    buckets = [tuple(t(a) for a in b) for b in zip(*bucketize_blocks(U, D, d0))]
-    return buckets, t(z), t(v)
+    Ub, Db, _ = bucketize_blocks(U, D, [x[0] for x in d0])
+    per_point = [bucketize_blocks(U, D, [x[p] for x in d0])[2] for p in range(max(n_points, 1))]
+    d0b = [np.stack(b) for b in zip(*per_point)] if n_points else per_point[0]
+    return [(t(u), t(dd), t(o)) for u, dd, o in zip(Ub, Db, d0b)], t(z), t(v)
 
 
 def phase_k1(device, W: int, reps: int = 50) -> dict:
@@ -219,6 +260,109 @@ def phase_k1(device, W: int, reps: int = 50) -> dict:
           f"(tol {K1_TOL}); bit-equal on repeat; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
           f"per likelihood evaluation (3 bucket calls)", flush=True)
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_k1_points(device, P: int = 30, Wh: int = 50, reps: int = 20) -> dict:
+    """K1 with one residual-offset table per point (the block-mode closure
+    batch): P * Wh walkers in one launch per bucket, against P single-point
+    launches (bit-equal) and against the plain version."""
+    from bayesian_inference_tpu_torch.ops import fused_mvn
+
+    W = P * Wh
+    buckets, z, v = mvn_buckets(W, device, torch.float32, seed=3, n_points=P)
+    buckets64, z64, v64 = mvn_buckets(W, device, torch.float64, seed=3, n_points=P)
+    check([b[2].shape for b in buckets] == [(P, 40, 8), (P, 96, 16), (P, 8, 24)], "K1 points: d0 layout")
+
+    def kernel():
+        return sum(fused_mvn.fused_block_mvn_loglike(U, D, d0, z, v) for U, D, d0 in buckets)
+
+    def plain():
+        return sum(fused_mvn.fused_block_mvn_plain(U, D, d0, z, v) for U, D, d0 in buckets)
+
+    ll = kernel()
+    single = torch.cat([
+        sum(fused_mvn.fused_block_mvn_loglike(U, D, d0[p].contiguous(), z[p * Wh:(p + 1) * Wh].contiguous(),
+                                              v[p * Wh:(p + 1) * Wh].contiguous()) for U, D, d0 in buckets)
+        for p in range(P)
+    ])
+    torch.cuda.synchronize()
+    ll_plain = plain()
+    ll64 = sum(fused_mvn.fused_block_mvn_plain(U, D, d0, z64, v64) for U, D, d0 in buckets64)
+    rel = float((ll.double() - ll64).abs().max()) / float(ll64.abs().max())
+    max_abs = float((ll - ll_plain).abs().max())
+    ms, plain_ms = time_pair(kernel, plain, reps)
+    print(f"K1 fused_block_mvn per-point d0, P={P} x Wh={Wh} walkers, production buckets, f32: bit-equal to {P} "
+          f"single-point launches: {bool(torch.equal(ll, single))}; max abs err vs plain f32 {max_abs:.3g}; "
+          f"max err / max|ll| vs float64 {rel:.3g} (tol {K1_TOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+          f"per likelihood evaluation (3 bucket calls)", flush=True)
+    check(ll.shape == (W,) and bool(torch.isfinite(ll).all()), "K1 points: non-finite or misshapen result")
+    check(bool(torch.equal(ll, single)), "K1 points: not bit-equal to single-point launches")
+    check(rel <= K1_TOL, f"K1 points: differs from the float64 plain path by {rel:.3g} > {K1_TOL}")
+    check(bool(torch.equal(ll, kernel())), "K1 points: repeated launches are not bit-equal")
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+
+
+def capacitance_operands(B: int, device, dtype, seed: int = 4, k: int = N_PCS, F: int = 1644):
+    """(r, M) shaped like the lowrank likelihood's capacitance solve:
+    M = G + diag(1/v), G = W^T W of a (F, k) factor with decaying column
+    scales, v the GP variances of B walkers, r = b + G z."""
+    rng = np.random.default_rng(seed)
+    colscale = np.exp(-np.arange(k) / 10.0)
+    Wf = rng.normal(size=(F, k)) * colscale * 0.05
+    G = Wf.T @ Wf
+    v = rng.uniform(1e-3, 0.1, (B, k)) * colscale
+    z = rng.normal(size=(B, k)) * colscale
+    b = rng.normal(size=k)
+    M = G + np.einsum("bk,kj->bkj", 1.0 / v, np.eye(k))
+    r = b + z @ G
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
+    return t(r), t(M)
+
+
+def phase_k4(device, reps: int = 50) -> dict:
+    """K4 (block_mvn_loglike) at the lowrank batch sizes: B = 50 (one
+    analysis, half-ensemble) and 1,500 (30 closure points x 50)."""
+    from bayesian_inference_tpu_torch.ops import tiny_mvn
+
+    result = None
+    for B in (50, 1500):
+        r, M = capacitance_operands(B, device, torch.float32)
+        r64, M64 = capacitance_operands(B, device, torch.float64)
+        ll = tiny_mvn.block_mvn_loglike(r, M)
+        quad, half_logdet = tiny_mvn.mvn_terms(r, M)
+        torch.cuda.synchronize()
+        ll_plain = tiny_mvn.block_mvn_plain(r, M)
+        quad64, hld64 = tiny_mvn.mvn_terms_plain(r64, M64)
+        ll64 = -0.5 * quad64 - hld64
+        scale = 0.5 * quad64.abs() + hld64.abs()
+        rel = float(((ll.double() - ll64).abs() / scale).max())
+        rel_plain = float(((ll_plain.double() - ll64).abs() / scale).max())
+        # the Woodbury combination +quad/2 - half_logdet from the same sweep
+        wrel = float(((0.5 * quad.double() - half_logdet.double() - (0.5 * quad64 - hld64)).abs() / scale).max())
+        max_abs = float((ll - ll_plain).abs().max())
+        cond = torch.linalg.cond(M64)
+        repeat = bool(torch.equal(ll, tiny_mvn.block_mvn_loglike(r, M)))
+
+        bad = M[:8].clone()
+        bad[3] = -bad[3]
+        ll_bad = tiny_mvn.block_mvn_loglike(r[:8].contiguous(), bad)
+        torch.cuda.synchronize()
+        nan_ok = bool(torch.isnan(ll_bad[3])) and bool(torch.isfinite(ll_bad[[0, 1, 2, 4, 5, 6, 7]]).all())
+
+        ms, plain_ms = time_pair(lambda: tiny_mvn.block_mvn_loglike(r, M),
+                                 lambda: tiny_mvn.block_mvn_plain(r, M), reps)
+        print(f"K4 block_mvn B={B} capacitance M = G + diag(1/v), k={N_PCS} (cond {float(cond.min()):.3g}.."
+              f"{float(cond.max()):.3g}), f32: max per-instance err / (|quad|/2 + |half_logdet|) vs float64: "
+              f"kernel {rel:.3g}, plain f32 {rel_plain:.3g}, Woodbury combination {wrel:.3g} (tol {K4_TOL}); "
+              f"max abs err vs plain f32 {max_abs:.3g}; non-SPD -> NaN in that instance only: {nan_ok}; "
+              f"bit-equal on repeat: {repeat}; kernel {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call", flush=True)
+        check(ll.shape == (B,) and bool(torch.isfinite(ll).all()), f"K4: non-finite or misshapen result at B={B}")
+        check(rel <= K4_TOL and wrel <= K4_TOL, f"K4: B={B} differs from float64 by {max(rel, wrel):.3g} > {K4_TOL}")
+        check(nan_ok, "K4: a non-SPD instance must yield NaN without touching its neighbours")
+        check(repeat, "K4: repeated launches are not bit-equal")
+        if B == 1500:
+            result = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+    return result
 
 
 def production_config(work_dir: Path, table_dir: Path, n_walkers: int, n_burn: int, n_steps: int,
@@ -269,10 +413,20 @@ def production_config(work_dir: Path, table_dir: Path, n_walkers: int, n_burn: i
     }
 
 
+def mcmc_config(n_steps: int):
+    """The production MCMC config with ``n_steps`` production steps."""
+    from bayesian_inference_tpu_torch.pipeline.configs import MCMCConfig
+
+    config = production_config(WORK_DIR, WORK_DIR / "production_tables", N_WALKERS, N_BURN, n_steps, N_RESTARTS)
+    return MCMCConfig(ANALYSIS, PARAMETERIZATION, config["analyses"][ANALYSIS], config=config)
+
+
 def phase_slice(device, kernels, n_restarts: int = N_RESTARTS, n_opt_iters: int = N_OPT_ITERS,
                 n_walkers: int = N_WALKERS, n_burn: int = N_BURN, n_steps: int = N_STEPS,
-                n_check: int = 64) -> dict:
-    """The main path at production width: fit -> likelihood -> sampler."""
+                n_check: int = 64) -> tuple[dict, dict]:
+    """The main path at production width: fit -> likelihood -> sampler.
+    Returns (kernel launches, what later phases reuse: emulators, observables,
+    configs and the production chain)."""
     from bayesian_inference_tpu_torch.io import observables as obs_io
     from bayesian_inference_tpu_torch.io.synthetic import make_production_tables
     from bayesian_inference_tpu_torch.io.tables import initialize_observables_dict_from_tables
@@ -300,8 +454,7 @@ def phase_slice(device, kernels, n_restarts: int = N_RESTARTS, n_opt_iters: int 
           f"{observables['Design'].shape[1]}) from the synthetic production tables, {t_data:.2f} s (set-up)",
           flush=True)
 
-    for k in kernels.values():
-        k.launches = 0
+    reset(kernels)
     t = time.perf_counter()
     artifacts = fit_emulators(emu, seed=0, n_opt_iters=n_opt_iters, device=device,
                               observables=observables, write=False)
@@ -309,7 +462,7 @@ def phase_slice(device, kernels, n_restarts: int = N_RESTARTS, n_opt_iters: int 
     t_fit = time.perf_counter() - t
     out = run_mcmc(mcmc, seed=0, device=device, emulation_results=artifacts, observables=observables,
                    write=False)
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = counts(kernels)
 
     n_pc = sum(g["n_pc"] for g in PRODUCTION_GROUPS.values())
     timings = {"fit": t_fit, **out["timings"]}
@@ -322,7 +475,8 @@ def phase_slice(device, kernels, n_restarts: int = N_RESTARTS, n_opt_iters: int 
     print(f"slice kernel launches: {launches}; production log-probs finite: {bool(np.isfinite(logp).all())}, "
           f"shape {logp.shape}; mean acceptance {af:.4f} (must lie in {ACCEPTANCE_RANGE})", flush=True)
     check(n_pc == sum(a["n_pc"] for a in artifacts.values()), "slice: fitted PC count")
-    check(all(n > 0 for n in launches.values()), f"slice: a kernel of the path never launched: {launches}")
+    check(launches["diag_chol_inv"] > 0 and launches["fused_block_mvn"] > 0,
+          f"slice: a kernel of the path never launched: {launches}")
     check(logp.shape == (n_steps, n_walkers) and bool(np.isfinite(logp).all()), "slice: non-finite log-probs")
     check(ACCEPTANCE_RANGE[0] < af < ACCEPTANCE_RANGE[1], f"slice: mean acceptance {af:.4f} out of range")
 
@@ -363,6 +517,119 @@ def phase_slice(device, kernels, n_restarts: int = N_RESTARTS, n_opt_iters: int 
           f"(tol {LOGP_TOL})", flush=True)
     check(bool(torch.isfinite(lp).all()), "slice: non-finite log_posterior at posterior points")
     check(lp_rel <= LOGP_TOL, f"slice: log_posterior differs from the float64 plain path by {lp_rel:.3g}")
+    reuse = {"emu": emu, "artifacts": artifacts, "observables": observables, "experimental": experimental,
+             "box": box, "chain": out["chain"]}
+    return launches, reuse
+
+
+def phase_lowrank(device, kernels, s: dict, n_check: int = 64) -> dict:
+    """One lowrank (Woodbury) analysis on the slice's fitted emulators: the
+    f32 kernel path against the float64 plain path (on the host), then
+    ``run_mcmc(mode="lowrank")`` at 100 walkers."""
+    from bayesian_inference_tpu_torch.mcmc.likelihood import build_likelihood
+    from bayesian_inference_tpu_torch.mcmc.runner import run_mcmc
+
+    box = s["box"]
+    t = time.perf_counter()
+    like = build_likelihood(s["emu"], s["artifacts"], s["experimental"], box["min"], box["max"], mode="lowrank",
+                            device=device, dtype=torch.float32, observables=s["observables"])
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t
+    like64 = build_likelihood(s["emu"], s["artifacts"], s["experimental"], box["min"], box["max"],
+                              mode="lowrank", device="cpu", dtype=torch.float64, observables=s["observables"])
+    theta = torch.tensor(s["chain"][-1][:n_check], dtype=torch.float64)
+    lp = like.log_posterior(theta.to(device, torch.float32)).double().cpu()
+    lp64 = like64.log_posterior(theta)
+    lp_rel = float((lp - lp64).abs().max() / lp64.abs().max())
+    F, k = like.wb.U.shape
+    print(f"lowrank check: Woodbury build (F={F}, k={k}) {t_build:.3f} s; log_posterior at {n_check} posterior "
+          f"points, f32 kernels vs float64 plain: max err / max|lp| {lp_rel:.3g} (tol {LOGP_TOL}); "
+          f"c0 {float(like.wb.c0):.4g}, |lp| up to {float(lp64.abs().max()):.4g}", flush=True)
+    check(bool(torch.isfinite(lp).all()), "lowrank: non-finite log_posterior at posterior points")
+    check(lp_rel <= LOGP_TOL, f"lowrank: log_posterior differs from the float64 plain path by {lp_rel:.3g}")
+
+    config = mcmc_config(N_STEPS)
+    reset(kernels)
+    out = run_mcmc(config, seed=0, device=device, emulation_results=s["artifacts"], observables=s["observables"],
+                   write=False, mode="lowrank")
+    launches = counts(kernels)
+    logp = out["log_prob"]
+    af = float(np.mean(out["acceptance_fraction"]))
+    timings = out["timings"]
+    print("lowrank run_mcmc phases (s): " + ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
+          + f"; {N_WALKERS} walkers x ({N_BURN} burn-in + {N_STEPS}) steps, "
+          f"{N_STEPS / timings['production']:.1f} production steps/s; kernel launches {launches}; "
+          f"log-probs finite: {bool(np.isfinite(logp).all())}; NaN log-probs {int(np.isnan(logp).sum())}; "
+          f"mean acceptance {af:.4f}; split-R-hat max {float(out['split_rhat'].max()):.4f}", flush=True)
+    check(launches["block_mvn"] > 0, f"lowrank: the tiny-MVN kernel never launched: {launches}")
+    check(logp.shape == (N_STEPS, N_WALKERS) and bool(np.isfinite(logp).all()), "lowrank: non-finite log-probs")
+    check(ACCEPTANCE_RANGE[0] < af < ACCEPTANCE_RANGE[1], f"lowrank: mean acceptance {af:.4f} out of range")
+    return launches
+
+
+def phase_closure(device, kernels, s: dict, mode: str, n_check: int = 100) -> dict:
+    """The closure batch over the 30 validation points in ``mode``: per-point
+    checks, device statistics against the host ones, and each point's
+    log-posterior against a likelihood built for that point alone."""
+    from bayesian_inference_tpu_torch.mcmc import stats
+    from bayesian_inference_tpu_torch.mcmc.likelihood import build_likelihood
+    from bayesian_inference_tpu_torch.mcmc.runner import run_closure_batch
+
+    n_steps = CLOSURE_STEPS[mode]
+    config = mcmc_config(n_steps)
+    indices = list(range(s["observables"]["Design_validation"].shape[0]))
+    P = len(indices)
+    reset(kernels)
+    out = run_closure_batch(config, indices, seed=0, device=device, mode=mode, emulation_results=s["artifacts"],
+                            observables=s["observables"], write=False)
+    launches = counts(kernels)
+    timings = out[indices[0]]["timings"]
+
+    chain = np.stack([out[i]["chain"] for i in indices], axis=1)   # (n, P, W, d)
+    logp = np.stack([out[i]["log_prob"] for i in indices], axis=1)
+    af = np.array([float(np.mean(out[i]["acceptance_fraction"])) for i in indices])
+    # The runner's device statistics (R-hat as returned; tau recomputed by the
+    # same device function, since the runner keeps tau only where the chain
+    # is longer than 50 tau) against the host estimators on the downloaded chains.
+    tau_host, _ = stats.integrated_time_batched(chain)
+    powers, nfft, _ = stats.device_closure_stats(torch.tensor(chain, device=device))
+    tau_dev = np.array([stats.integrated_time_from_power(powers[p], nfft, n_steps, out_dtype=chain.dtype)[0]
+                        for p in range(P)])
+    for p, i in enumerate(indices):
+        if out[i]["autocorrelation_time"] is not None:
+            check(np.allclose(out[i]["autocorrelation_time"], tau_dev[p], rtol=1e-6), f"closure {mode}: point {i} tau")
+    rhat_dev = np.array([out[i]["split_rhat"] for i in indices])
+    rhat_host = np.array([stats.split_rhat(chain[:, p]) for p in range(P)])
+    tau_err = float(np.max(np.abs(tau_dev - tau_host) / tau_host))
+    rhat_err = float(np.max(np.abs(rhat_dev - rhat_host)))
+
+    box = s["box"]
+    lp_err = 0.0
+    for p, i in enumerate(indices):
+        like_i = build_likelihood(s["emu"], s["artifacts"], out[i]["experimental_pseudodata"], box["min"],
+                                  box["max"], mode=mode, device=device, observables=s["observables"])
+        theta = torch.tensor(chain[-1, p, :n_check], device=device, dtype=like_i.theta_min.dtype)
+        lp_single = like_i.log_posterior(theta).double().cpu().numpy()
+        ref = logp[-1, p, :n_check].astype(np.float64)
+        lp_err = max(lp_err, float(np.max(np.abs(ref - lp_single)) / np.max(np.abs(lp_single))))
+
+    rate = P * n_steps / timings["production"]
+    print(f"closure {mode}: {P} points x {N_WALKERS} walkers x ({N_BURN} burn-in + {n_steps}) steps; phases (s): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
+          + f"; {rate:.1f} production point-steps/s; kernel launches {launches}; log-probs finite: "
+          f"{bool(np.isfinite(logp).all())}; acceptance per point {af.min():.4f}..{af.max():.4f}; device vs host "
+          f"tau max rel err {tau_err:.3g} (tol {TAU_RTOL}), split-R-hat max abs err {rhat_err:.3g} "
+          f"(tol {RHAT_ATOL}); batched vs per-point likelihood at {n_check} final positions per point: "
+          f"max err / max|lp| {lp_err:.3g} (tol {CLOSURE_LOGP_TOL})", flush=True)
+    kernel = "block_mvn" if mode == "lowrank" else "fused_block_mvn"
+    check(launches[kernel] > 0, f"closure {mode}: kernel {kernel} never launched: {launches}")
+    check(chain.shape == (n_steps, P, N_WALKERS, 6) and bool(np.isfinite(logp).all()),
+          f"closure {mode}: non-finite or misshapen chains")
+    check(bool(((ACCEPTANCE_RANGE[0] < af) & (af < ACCEPTANCE_RANGE[1])).all()),
+          f"closure {mode}: acceptance out of range at some point: {af.min():.4f}..{af.max():.4f}")
+    check(tau_err <= TAU_RTOL, f"closure {mode}: device tau off the host estimate by {tau_err:.3g}")
+    check(rhat_err <= RHAT_ATOL, f"closure {mode}: device split-R-hat off the host one by {rhat_err:.3g}")
+    check(lp_err <= CLOSURE_LOGP_TOL, f"closure {mode}: batched log-posterior off the per-point one by {lp_err:.3g}")
     return launches
 
 
@@ -376,37 +643,56 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
-    from bayesian_inference_tpu_torch.ops import blocked_cholesky, fused_mvn
+    from bayesian_inference_tpu_torch.ops import blocked_cholesky, fused_mvn, tiny_mvn
+    from bayesian_inference_tpu_torch.ops._native import build_all
 
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     smi = nvidia_smi_line()
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s), using {torch.cuda.get_device_name(0)}", flush=True)
 
-    kernels = {"diag_chol_inv": blocked_cholesky.KERNEL, "fused_block_mvn": fused_mvn.KERNEL}
-    for name, k in kernels.items():
-        k.build()
+    kernels = {"diag_chol_inv": blocked_cholesky.KERNEL, "fused_block_mvn": fused_mvn.KERNEL,
+               "block_mvn": tiny_mvn.KERNEL}
+    t = time.perf_counter()
+    build_all(kernels.values())
+    for k in kernels.values():
         usage = "; ".join(line.split("ptxas info    : ")[-1] for line in k.build_log.splitlines()
                           if "Used" in line)
         print(f"build: {k.source.name} -> {k.library_path().name} in {k.build_seconds:.2f} s ({usage})", flush=True)
+    print(f"build: {len(kernels)} sources in parallel, {time.perf_counter() - t:.2f} s wall", flush=True)
     print("host I/O: no h5py and no yaml; the config dict, observables and emulator artifacts stay in memory "
-          "and run_mcmc(write=False) writes no files", flush=True)
+          "and the runners write no files (write=False)", flush=True)
 
     k3 = phase_k3(device)
     k1 = phase_k1(device, W=N_WALKERS // 2)
     phase_k1(device, W=N_WALKERS)  # the half-ensemble width of a 200-walker run
-    launches = phase_slice(device, kernels)
+    phase_k1_points(device)
+    k4 = phase_k4(device)
+    path_launches = []
+    launches, reuse = phase_slice(device, kernels)
+    path_launches.append(launches)
+    path_launches.append(phase_lowrank(device, kernels, reuse))
+    for mode in ("lowrank", "block"):
+        path_launches.append(phase_closure(device, kernels, reuse, mode))
+    total = {name: sum(p[name] for p in path_launches) for name in kernels}
+    print(f"kernel launches over the four path runs (fit->sample, lowrank analysis, lowrank and block closure "
+          f"batches): {total}; whole script {time.perf_counter() - t_start:.1f} s", flush=True)
 
     record = {"kernels": [
         {"name": "diag_chol_inv", "route": "cuda",
          "source": "src/bayesian_inference_tpu_torch/csrc/diag_chol_inv.cu",
          "replaces": "src/bayesian_inference_tpu/ops/blocked_cholesky.py:71",
-         "launches": launches["diag_chol_inv"], **k3},
+         "launches": total["diag_chol_inv"], **k3},
         {"name": "fused_block_mvn", "route": "cuda",
          "source": "src/bayesian_inference_tpu_torch/csrc/fused_block_mvn.cu",
          "replaces": "src/bayesian_inference_tpu/ops/pallas_mvn.py:189",
-         "launches": launches["fused_block_mvn"], **k1},
+         "launches": total["fused_block_mvn"], **k1},
+        {"name": "block_mvn", "route": "cuda",
+         "source": "src/bayesian_inference_tpu_torch/csrc/tiny_mvn.cu",
+         "replaces": "src/bayesian_inference_tpu/ops/pallas_mvn.py:90",
+         "launches": total["block_mvn"], **k4},
     ]}
     print(json.dumps(record))
     print(smi)

@@ -4,17 +4,22 @@
 // computes the same function as its W > 64 sibling _fused_kernel). For every
 // walker w and every observable block o of one width bucket:
 //
-//   b = d0[o] + U[o] z[w]                       (nb)
+//   b = d0[p(w), o] + U[o] z[w]                 (nb)
 //   C = D[o] + U[o] diag(v[w]) U[o]^T           (nb x nb)
 //   ll[o, w] = -1/2 |L^{-1} b|^2 - sum(log diag L),   C = L L^T
 //
 // and out[w] = sum_o ll[o, w]. No (W, n_obs, nb, nb) covariance ever reaches
-// device memory: a thread block stages one observable block's U, D and d0 in
+// device memory: a thread block stages one observable block's U and D in
 // shared memory once, and each of its warps owns one walker, assembling b and
 // the lower triangle of C in its own shared-memory tile (at most 48 x 49
-// floats) and factorising it with the lanes over rows (right-looking rank-1
-// downdates fused with the forward substitution and the log-determinant).
+// floats) and factorising it with the shared column sweep of tiny_chol.cuh.
 // Padded rows of a bucket carry D = I, U = 0, d0 = 0 and contribute 0.
+//
+// The residual offsets d0 may differ per point of a batched closure run: d0
+// is (P, n_obs, nb), walkers are laid out point-major with Wh per point, and
+// walker w reads row p(w) = w / Wh. Walkers of two points can share a thread
+// block, so each warp reads its own d0 row from device memory. P = 1 (Wh = W)
+// is the single-analysis likelihood.
 //
 // What bounds it: the assembly's ~nb^2 k / 2 fused multiply-adds per
 // (walker, block) and the factorisation's serial column steps (a warp barrier
@@ -22,9 +27,12 @@
 //
 // The sum over blocks is deterministic, without atomics: the first kernel
 // writes a (n_obs, W) buffer and a second kernel sums it per walker in block
-// order, so repeated runs give bit-equal log-probabilities.
+// order, so repeated runs give bit-equal log-probabilities, and a walker's
+// value does not depend on which other walkers share its launch.
 
 #include <cuda_runtime.h>
+
+#include "tiny_chol.cuh"
 
 namespace {
 
@@ -35,17 +43,17 @@ __global__ void __launch_bounds__(kWarps * 32)
 fused_block_mvn_kernel(const float* __restrict__ U, const float* __restrict__ D,
                        const float* __restrict__ d0, const float* __restrict__ z,
                        const float* __restrict__ v, float* __restrict__ ll_blk,
-                       int nb, int k, int W) {
+                       int nb, int k, int W, int Wh) {
   extern __shared__ float smem[];
   const int kp = k | 1;   // odd pitches keep strided shared reads conflict-light
   const int cp = nb | 1;
   float* U_s = smem;                 // nb x kp
   float* D_s = U_s + nb * kp;        // nb x cp
-  float* d0_s = D_s + nb * cp;       // nb
-  float* warp_tiles = d0_s + nb;
+  float* warp_tiles = D_s + nb * cp;
   const int per_warp = 2 * k + nb + nb * cp;
 
   const int o = blockIdx.x;
+  const int n_obs = gridDim.x;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int w = blockIdx.y * kWarps + warp;
@@ -54,7 +62,6 @@ fused_block_mvn_kernel(const float* __restrict__ U, const float* __restrict__ D,
   const float* Do = D + static_cast<size_t>(o) * nb * nb;
   for (int e = tid; e < nb * k; e += kWarps * 32) U_s[(e / k) * kp + e % k] = Uo[e];
   for (int e = tid; e < nb * nb; e += kWarps * 32) D_s[(e / nb) * cp + e % nb] = Do[e];
-  for (int e = tid; e < nb; e += kWarps * 32) d0_s[e] = d0[static_cast<size_t>(o) * nb + e];
 
   float* zs = warp_tiles + warp * per_warp;
   float* vs = zs + k;
@@ -70,8 +77,9 @@ fused_block_mvn_kernel(const float* __restrict__ U, const float* __restrict__ D,
   if (w >= W) return;  // no block-wide barrier below this point
 
   // Assembly: residual and the lower triangle of the covariance.
+  const float* d0w = d0 + (static_cast<size_t>(w / Wh) * n_obs + o) * nb;
   for (int f = lane; f < nb; f += 32) {
-    float acc = d0_s[f];
+    float acc = d0w[f];
     for (int q = 0; q < k; ++q) acc = fmaf(U_s[f * kp + q], zs[q], acc);
     bs[f] = acc;
   }
@@ -84,27 +92,8 @@ fused_block_mvn_kernel(const float* __restrict__ U, const float* __restrict__ D,
   }
   __syncwarp();
 
-  // Cholesky fused with forward substitution and log-determinant.
-  float quad = 0.f, half_logdet = 0.f;
-  for (int j = 0; j < nb; ++j) {
-    const float pivot = C[j * cp + j];
-    const float d = pivot > 0.f ? sqrtf(pivot) : __int_as_float(0x7fc00000);
-    const float inv = 1.f / d;
-    const float yj = bs[j] * inv;
-    quad = fmaf(yj, yj, quad);
-    half_logdet += logf(d);
-    for (int i = j + 1 + lane; i < nb; i += 32) {
-      const float l = C[i * cp + j] * inv;
-      C[i * cp + j] = l;
-      bs[i] = fmaf(-l, yj, bs[i]);
-    }
-    __syncwarp();
-    for (int i = j + 1 + lane; i < nb; i += 32) {
-      const float li = C[i * cp + j];
-      for (int c = j + 1; c <= i; ++c) C[i * cp + c] = fmaf(-li, C[c * cp + j], C[i * cp + c]);
-    }
-    __syncwarp();
-  }
+  float quad, half_logdet;
+  tiny_chol_sweep(C, bs, nb, cp, lane, quad, half_logdet);
   if (lane == 0) ll_blk[static_cast<size_t>(o) * W + w] = -0.5f * quad - half_logdet;
 }
 
@@ -119,14 +108,16 @@ __global__ void sum_over_blocks_kernel(const float* __restrict__ ll_blk, float* 
 
 }  // namespace
 
+// W walkers in total, Wh per point (W a multiple of Wh); d0 holds W / Wh
+// (n_obs, nb) offset tables, point-major.
 extern "C" int fused_block_mvn_f32(const float* U, const float* D, const float* d0,
                                    const float* z, const float* v, float* ll_blk, float* out,
-                                   int n_obs, int nb, int k, int W, void* stream) {
-  if (nb < 1 || nb > kMaxNb || k < 1 || n_obs < 1 || W < 1) {
+                                   int n_obs, int nb, int k, int W, int Wh, void* stream) {
+  if (nb < 1 || nb > kMaxNb || k < 1 || n_obs < 1 || W < 1 || Wh < 1 || W % Wh != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int kp = k | 1, cp = nb | 1;
-  const size_t smem = sizeof(float) * (nb * kp + nb * cp + nb + kWarps * (2 * k + nb + nb * cp));
+  const size_t smem = sizeof(float) * (nb * kp + nb * cp + kWarps * (2 * k + nb + nb * cp));
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         fused_block_mvn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -134,7 +125,7 @@ extern "C" int fused_block_mvn_f32(const float* U, const float* D, const float* 
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(n_obs, (W + kWarps - 1) / kWarps);
-  fused_block_mvn_kernel<<<grid, kWarps * 32, smem, s>>>(U, D, d0, z, v, ll_blk, nb, k, W);
+  fused_block_mvn_kernel<<<grid, kWarps * 32, smem, s>>>(U, D, d0, z, v, ll_blk, nb, k, W, Wh);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   sum_over_blocks_kernel<<<(W + 127) / 128, 128, 0, s>>>(ll_blk, out, n_obs, W);

@@ -102,6 +102,19 @@ def predictions_matrix_from_h5(
     return Y
 
 
+def design_array_from_h5(
+    output_dir: str,
+    filename: str,
+    validation_set: bool = False,
+    observables: dict[str, Any] | None = None,
+) -> npt.NDArray[np.float64]:
+    """The (n_design, n_params) design matrix (of the validation set when
+    ``validation_set``). A pre-read ``observables`` dict skips the h5 read."""
+    if observables is None:
+        observables = read_observables(output_dir, filename)
+    return observables["Design_validation" if validation_set else "Design"]
+
+
 def data_array_from_h5(
     output_dir: str,
     filename: str,

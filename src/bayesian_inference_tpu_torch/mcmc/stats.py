@@ -1,6 +1,11 @@
-"""Chain diagnostics on the host (numpy, carried over from
-``bayesian_inference_tpu.mcmc.stats``): emcee's FFT-based integrated
-autocorrelation time with Sokal windowing, and split-chain R-hat.
+"""Chain diagnostics: emcee's FFT-based integrated autocorrelation time with
+Sokal windowing, and split-chain R-hat.
+
+Host part carried over from ``bayesian_inference_tpu.mcmc.stats`` (numpy and
+scipy). The device part (``device_mean_power``, ``device_split_rhat``,
+``device_closure_stats``) runs the expensive forward transforms and moment
+sums on the chain's own device with ``torch.fft``, and downloads only the
+walker-averaged power spectra and the R-hats; the runners take it on CUDA.
 """
 
 from __future__ import annotations
@@ -9,10 +14,18 @@ import os
 
 import numpy as np
 import numpy.typing as npt
+import torch
 
 
 class AutocorrError(Exception):
     """Chain too short to reliably estimate the autocorrelation time."""
+
+
+def _next_pow_two(n: int) -> int:
+    i = 1
+    while i < n:
+        i <<= 1
+    return i
 
 
 def _auto_window(taus: npt.NDArray, c: float) -> int:
@@ -59,27 +72,7 @@ def split_rhat(chain: npt.NDArray) -> npt.NDArray:
     return np.sqrt(var_plus / np.where(W > 0, W, np.inf))
 
 
-def integrated_time(chain: npt.NDArray, c: float = 5.0, tol: float = 50.0, quiet: bool = False) -> npt.NDArray:
-    """Integrated autocorrelation time per parameter of a (n_steps, n_walkers, ndim) chain.
-
-    Averages the walker autocorrelation functions, applies Sokal's automatic
-    windowing with parameter ``c``, and raises AutocorrError when the chain is
-    shorter than ``tol`` autocorrelation times (unless ``quiet``).
-    """
-    chain = np.asarray(chain)
-    if not np.issubdtype(chain.dtype, np.floating):
-        chain = chain.astype(np.float64)
-    if chain.ndim == 2:
-        chain = chain[:, :, None]
-    n_t, n_w, n_d = chain.shape
-    L = _acf_lag_cap(n_t)
-    taus_all = _mean_acf_taus(chain, max_lag=L)
-    wins = [_auto_window(taus_all[:, d], c) for d in range(n_d)]
-    if L < n_t and any(w == 0 for w in wins):
-        taus_all = _mean_acf_taus(chain)
-        wins = [_auto_window(taus_all[:, d], c) for d in range(n_d)]
-    tau_est = np.array([taus_all[w, d] for d, w in enumerate(wins)])
-
+def _tau_or_raise(tau_est: npt.NDArray, n_t: int, tol: float, quiet: bool) -> npt.NDArray:
     if np.any(tol * tau_est > n_t):
         msg = (
             f"The chain is shorter than {tol} times the integrated autocorrelation time "
@@ -91,24 +84,169 @@ def integrated_time(chain: npt.NDArray, c: float = 5.0, tol: float = 50.0, quiet
     return tau_est
 
 
-def _mean_acf_taus(chain: npt.NDArray, max_lag: int | None = None) -> npt.NDArray:
-    """Cumulative tau estimates 2*cumsum(mean_acf)-1, shape (L, n_d).
+def integrated_time(
+    chain: npt.NDArray,
+    c: float = 5.0,
+    tol: float = 50.0,
+    quiet: bool = False,
+    mean_power: tuple[npt.NDArray, int] | None = None,
+) -> npt.NDArray:
+    """Integrated autocorrelation time per parameter of a (n_steps, n_walkers, ndim) chain.
+
+    Averages the walker autocorrelation functions, applies Sokal's automatic
+    windowing with parameter ``c``, and raises AutocorrError when the chain is
+    shorter than ``tol`` autocorrelation times (unless ``quiet``).
+
+    ``mean_power``: a precomputed ``(power, nfft)`` walker-averaged power
+    spectrum from ``device_mean_power``; only the inverse transform and the
+    windowing then run here. The spectrum is full-length, so no lag cap
+    applies.
+    """
+    chain = np.asarray(chain)
+    if not np.issubdtype(chain.dtype, np.floating):
+        chain = chain.astype(np.float64)
+    if chain.ndim == 2:
+        chain = chain[:, :, None]
+    n_t, n_w, n_d = chain.shape
+    if mean_power is not None:
+        power, nfft = mean_power
+        tau_est, _ = integrated_time_from_power(power, nfft, n_t, c=c, tol=tol, out_dtype=chain.dtype)
+        return _tau_or_raise(tau_est, n_t, tol, quiet)
+    L = _acf_lag_cap(n_t)
+    taus_all = _mean_acf_taus(chain[:, None], max_lag=L)[:, 0, :]
+    wins = [_auto_window(taus_all[:, d], c) for d in range(n_d)]
+    if L < n_t and any(w == 0 for w in wins):
+        taus_all = _mean_acf_taus(chain[:, None])[:, 0, :]
+        wins = [_auto_window(taus_all[:, d], c) for d in range(n_d)]
+    tau_est = np.array([taus_all[w, d] for d, w in enumerate(wins)])
+    return _tau_or_raise(tau_est, n_t, tol, quiet)
+
+
+def _mean_acf_taus(chain: npt.NDArray, max_lag: int | None = None, max_chunk_series: int = 4096) -> npt.NDArray:
+    """Cumulative tau estimates 2*cumsum(mean_acf)-1, shape (L, P, n_d), of a
+    (n_t, P, n_w, n_d) batch of P independent chains.
 
     Each centered series is scaled to unit norm, so the walker mean of the
     ACFs is the inverse transform of the walker mean of the power spectra.
-    Padding to next_fast_len(n_t + L - 1) keeps the linear ACF exact at all
-    lags < L.
+    Forward transforms run a few points at a time (at most ~``max_chunk_series``
+    series), which bounds the complex buffer. Padding to
+    next_fast_len(n_t + L - 1) keeps the linear ACF exact at all lags < L.
     """
     from scipy import fft as sfft
 
-    n_t, n_w, n_d = chain.shape
+    n_t, P, n_w, n_d = chain.shape
     L = n_t if max_lag is None else min(int(max_lag), n_t)
     workers = os.cpu_count() or 1
     nfft = sfft.next_fast_len(n_t + L - 1, real=True)
-    x = (chain - chain.mean(axis=0)).reshape(n_t, n_w * n_d)
+    x = (chain - chain.mean(axis=0)).reshape(n_t, P * n_w * n_d)
     norm = np.sqrt(np.einsum("tj,tj->j", x, x))
     x = x / np.where(norm == 0.0, 1.0, norm)
-    f = sfft.rfft(x, n=nfft, axis=0, workers=workers)
-    power = (f.real**2 + f.imag**2).reshape(-1, n_w, n_d).sum(axis=1, dtype=np.float64) / n_w
-    mean_acf = sfft.irfft(power.astype(chain.dtype), n=nfft, axis=0, workers=workers)[:L]
-    return 2.0 * np.cumsum(mean_acf, axis=0, dtype=np.float64) - 1.0
+    group = n_w * n_d
+    pts_chunk = max(1, max_chunk_series // group)
+    power = np.empty((nfft // 2 + 1, P, n_d), np.float64)
+    for p0 in range(0, P, pts_chunk):
+        p1 = min(P, p0 + pts_chunk)
+        f = sfft.rfft(x[:, p0 * group : p1 * group], n=nfft, axis=0, workers=workers)
+        power[:, p0:p1] = (f.real**2 + f.imag**2).reshape(-1, p1 - p0, n_w, n_d).sum(axis=2, dtype=np.float64)
+    power /= n_w
+    return _taus_from_power(power, nfft, L, chain.dtype, workers=workers)
+
+
+def _taus_from_power(power: npt.NDArray, nfft: int, L: int, out_dtype, workers: int = 1) -> npt.NDArray:
+    """Cumulative tau estimates from a walker-averaged power spectrum
+    (nfft//2+1, P, n_d); the inverse transform runs in ``out_dtype`` (the
+    chain's precision). Returns (L, P, n_d)."""
+    from scipy import fft as sfft
+
+    _, P, n_d = power.shape
+    mean_acf = sfft.irfft(power.reshape(-1, P * n_d).astype(out_dtype), n=nfft, axis=0, workers=workers)[:L]
+    return 2.0 * np.cumsum(mean_acf, axis=0, dtype=np.float64).reshape(L, P, n_d) - 1.0
+
+
+def integrated_time_from_power(
+    power: npt.NDArray, nfft: int, n_t: int, c: float = 5.0, tol: float = 50.0, out_dtype=np.float32
+) -> tuple[npt.NDArray, npt.NDArray]:
+    """Sokal-windowed tau from a full-length walker-averaged power spectrum
+    (``device_mean_power``). Returns (tau (n_d,), reliable (n_d,) bool --
+    False where the chain is shorter than ``tol`` tau)."""
+    taus_all = _taus_from_power(np.asarray(power)[:, None, :], nfft, n_t, out_dtype)[:, 0, :]
+    tau = np.array([taus_all[_auto_window(taus_all[:, d], c), d] for d in range(taus_all.shape[1])])
+    return tau, tol * tau <= n_t
+
+
+def integrated_time_batched(chain: npt.NDArray, c: float = 5.0, tol: float = 50.0) -> tuple[npt.NDArray, npt.NDArray]:
+    """Integrated autocorrelation time of a batch of independent chains.
+
+    ``chain``: (n_t, P, n_w, n_d), P closure points diagnosed in one batched
+    FFT pass. Returns (tau (P, n_d), reliable (P, n_d) bool -- False where the
+    chain is shorter than ``tol`` tau, the AutocorrError condition of
+    ``integrated_time``).
+    """
+    chain = np.asarray(chain)
+    if not np.issubdtype(chain.dtype, np.floating):
+        chain = chain.astype(np.float64)
+    n_t, P, n_w, n_d = chain.shape
+    L = _acf_lag_cap(n_t)
+    flat = _mean_acf_taus(chain, max_lag=L).reshape(L, P * n_d)
+    m = np.arange(L)[:, None] < c * flat
+    win = np.where(m.any(axis=0), np.argmin(m, axis=0), L - 1)
+    if L < n_t and np.any(win == 0):
+        # some series' window lies beyond the lag cap: exact full-length redo
+        flat = _mean_acf_taus(chain).reshape(n_t, P * n_d)
+        m = np.arange(n_t)[:, None] < c * flat
+        win = np.where(m.any(axis=0), np.argmin(m, axis=0), n_t - 1)
+    tau = flat[win, np.arange(flat.shape[1])].reshape(P, n_d)
+    return tau, tol * tau <= n_t
+
+
+def _device_power(chain: torch.Tensor, nfft: int) -> torch.Tensor:
+    """Walker-averaged |rfft|^2 of the centered, unit-norm series of one
+    (n_t, n_w, n_d) chain, in the chain's precision: (nfft//2+1, n_d)."""
+    n_t, n_w, n_d = chain.shape
+    x = chain.reshape(n_t, n_w * n_d)
+    x = x - x.mean(dim=0, keepdim=True)
+    norm2 = (x * x).sum(dim=0)
+    x = x / torch.sqrt(torch.where(norm2 == 0.0, 1.0, norm2))
+    f = torch.fft.rfft(x, n=nfft, dim=0)
+    return (f.real**2 + f.imag**2).reshape(-1, n_w, n_d).mean(dim=1)
+
+
+def _device_rhat(chain: torch.Tensor) -> torch.Tensor:
+    """``split_rhat`` of one (n_t, n_w, n_d) chain in the chain's precision
+    (after global centering, f32 moments are accurate to ~1e-5)."""
+    n_t = chain.shape[0] - (chain.shape[0] % 2)
+    half = n_t // 2
+    c = chain[:n_t] - chain[:n_t].mean(dim=(0, 1), keepdim=True)
+    parts = (c[:half], c[half:])
+    means = torch.cat([p.mean(dim=0) for p in parts])
+    s2 = torch.cat([(p * p).sum(dim=0) for p in parts])
+    variances = (s2 - half * means**2) / (half - 1)
+    W = variances.mean(dim=0)
+    B_over_n = means.var(dim=0, correction=1)
+    var_plus = (half - 1) / half * W + B_over_n
+    return torch.sqrt(var_plus / torch.where(W > 0, W, torch.inf))
+
+
+def device_mean_power(chain: torch.Tensor) -> tuple[np.ndarray, int]:
+    """Walker-averaged ACF power spectrum of a (n_t, n_w, n_d) chain, computed
+    on the chain's device; only the (nfft//2+1, n_d) spectrum is downloaded.
+    Pass the result to ``integrated_time(..., mean_power=...)``. Full-length
+    transform: nfft = 2 * next_pow_two(n_t), emcee's choice."""
+    nfft = 2 * _next_pow_two(chain.shape[0])
+    return _device_power(chain, nfft).cpu().numpy(), nfft
+
+
+def device_split_rhat(chain: torch.Tensor) -> np.ndarray:
+    """``split_rhat`` computed on the chain's device; downloads (n_d,)."""
+    return _device_rhat(chain).cpu().numpy()
+
+
+def device_closure_stats(chain: torch.Tensor) -> tuple[np.ndarray, int, np.ndarray]:
+    """Per-point power spectra and split-R-hats of a batched closure chain
+    (n_t, P, n_w, n_d), on its device, one point at a time (the transform's
+    buffer stays one point's size). Returns (power (P, nfft//2+1, n_d), nfft,
+    rhat (P, n_d)); pass ``(power[p], nfft)`` to ``integrated_time_from_power``."""
+    nfft = 2 * _next_pow_two(chain.shape[0])
+    power = torch.stack([_device_power(chain[:, p], nfft) for p in range(chain.shape[1])])
+    rhat = torch.stack([_device_rhat(chain[:, p]) for p in range(chain.shape[1])])
+    return power.cpu().numpy(), nfft, rhat.cpu().numpy()

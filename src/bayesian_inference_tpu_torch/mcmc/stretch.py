@@ -12,11 +12,17 @@ StretchMove with its defaults:
 All draws of a chunk are generated up front from a ``torch.Generator`` (or
 injected, so a test can hand both packages the same numbers); the steps then
 run as device ops with no host round trip.
+
+Batched ensembles: P independent samplers (the closure test's validation
+points) advance together. Every state leaf gets a leading P axis, each point
+draws from its own generator, and each half-step makes one ``log_prob_fn``
+call over all P * W/2 walkers, which maps (P, W/2, d) to (P, W/2). The same
+step code serves both: walkers sit on axis -2 of the coordinates.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 
@@ -25,24 +31,32 @@ STRETCH_A = 2.0
 
 
 class EnsembleState(NamedTuple):
-    coords: torch.Tensor      # (W, d)
-    log_prob: torch.Tensor    # (W,)
-    n_accepted: torch.Tensor  # (W,) int32
+    coords: torch.Tensor      # (W, d), or (P, W, d)
+    log_prob: torch.Tensor    # (W,), or (P, W)
+    n_accepted: torch.Tensor  # (W,), or (P, W); int32
+
+
+def _take_walkers(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Walkers of x (..., W, d) or (..., W) at indices idx (..., n), per point."""
+    idx = idx.long()  # injected draws may carry int32 indices
+    if x.dim() == idx.dim():
+        return torch.gather(x, -1, idx)
+    return torch.gather(x, -2, idx[..., None].expand(*idx.shape, x.shape[-1]))
 
 
 def _stretch_half_draws(u, partners, u_acc, x_upd, logp_upd, x_comp, log_prob_fn: LogProbFn):
     """One half-update from pregenerated draws. Returns (x, logp, accepted)."""
-    d = x_upd.shape[1]
+    d = x_upd.shape[-1]
     a = STRETCH_A
     z = ((a - 1.0) * u + 1.0) ** 2 / a
-    x_c = x_comp[partners]
-    y = x_c + z[:, None] * (x_upd - x_c)
+    x_c = _take_walkers(x_comp, partners)
+    y = x_c + z[..., None] * (x_upd - x_c)
 
     logp_y = log_prob_fn(y)
     log_ratio = (d - 1.0) * torch.log(z) + logp_y - logp_upd
     accept = torch.log(u_acc) < log_ratio
 
-    x_new = torch.where(accept[:, None], y, x_upd)
+    x_new = torch.where(accept[..., None], y, x_upd)
     logp_new = torch.where(accept, logp_y, logp_upd)
     return x_new, logp_new, accept
 
@@ -63,6 +77,16 @@ def pregen_rands(n: int, W: int, generator: torch.Generator, dtype: torch.dtype)
     }
 
 
+def pregen_rands_batched(
+    n: int, W: int, generators: Sequence[torch.Generator], dtype: torch.dtype
+) -> dict[str, torch.Tensor]:
+    """``pregen_rands`` of each point from its own generator, stacked on axis
+    1: perm/inv (n, P, W), u_z/partners/u_acc (n, P, 2, W // 2). Each point's
+    draws are exactly those of a sequential run seeded like its generator."""
+    per_point = [pregen_rands(n, W, g, dtype) for g in generators]
+    return {k: torch.stack([r[k] for r in per_point], dim=1) for k in per_point[0]}
+
+
 def _step_with_rands(state: EnsembleState, r: dict[str, torch.Tensor], log_prob_fn: LogProbFn) -> EnsembleState:
     """One full ensemble step from one step's slice of the draws.
 
@@ -70,34 +94,56 @@ def _step_with_rands(state: EnsembleState, r: dict[str, torch.Tensor], log_prob_
     inverse permutation, never by a scatter: the second half's complementary
     set is exactly the freshly updated first half.
     """
-    half = state.coords.shape[0] // 2
-    x = state.coords[r["perm"]]
-    logp = state.log_prob[r["perm"]]
+    half = state.coords.shape[-2] // 2
+    x = _take_walkers(state.coords, r["perm"])
+    logp = _take_walkers(state.log_prob, r["perm"])
+
+    def draws(i):
+        return r["u_z"][..., i, :], r["partners"][..., i, :], r["u_acc"][..., i, :]
 
     x0, lp0, a0 = _stretch_half_draws(
-        r["u_z"][0], r["partners"][0], r["u_acc"][0], x[:half], logp[:half], x[half:], log_prob_fn
+        *draws(0), x[..., :half, :], logp[..., :half], x[..., half:, :], log_prob_fn
     )
-    x1, lp1, a1 = _stretch_half_draws(
-        r["u_z"][1], r["partners"][1], r["u_acc"][1], x[half:], logp[half:], x0, log_prob_fn
-    )
+    x1, lp1, a1 = _stretch_half_draws(*draws(1), x[..., half:, :], logp[..., half:], x0, log_prob_fn)
 
     inv = r["inv"]
     return EnsembleState(
-        coords=torch.cat([x0, x1])[inv],
-        log_prob=torch.cat([lp0, lp1])[inv],
-        n_accepted=state.n_accepted + torch.cat([a0, a1])[inv].to(torch.int32),
+        coords=_take_walkers(torch.cat([x0, x1], dim=-2), inv),
+        log_prob=_take_walkers(torch.cat([lp0, lp1], dim=-1), inv),
+        n_accepted=state.n_accepted + _take_walkers(torch.cat([a0, a1], dim=-1), inv).to(torch.int32),
     )
 
 
 def init_state(log_prob_fn: LogProbFn, x0: torch.Tensor) -> EnsembleState:
-    """Evaluate the initial ensemble log-probabilities and zero the counters."""
-    if x0.shape[0] % 2:
+    """Evaluate the initial ensemble log-probabilities and zero the counters.
+    ``x0``: (W, d), or (P, W, d) for P independent ensembles."""
+    if x0.shape[-2] % 2:
         raise ValueError("n_walkers must be even")
     return EnsembleState(
         coords=x0,
         log_prob=log_prob_fn(x0),
-        n_accepted=torch.zeros(x0.shape[0], dtype=torch.int32, device=x0.device),
+        n_accepted=torch.zeros(x0.shape[:-1], dtype=torch.int32, device=x0.device),
     )
+
+
+def init_state_batched(log_prob_fn: LogProbFn, x0: torch.Tensor) -> EnsembleState:
+    """``init_state`` of P ensembles at once: x0 (P, W, d), one
+    ``log_prob_fn`` call over all of them."""
+    if x0.dim() != 3:
+        raise ValueError(f"init_state_batched takes x0 of shape (P, W, d), got {tuple(x0.shape)}")
+    return init_state(log_prob_fn, x0)
+
+
+def _run_steps(state: EnsembleState, log_prob_fn: LogProbFn, n_steps: int, rands: dict[str, torch.Tensor]):
+    chain = torch.empty((n_steps, *state.coords.shape), dtype=state.coords.dtype, device=state.coords.device)
+    log_prob = torch.empty((n_steps, *state.log_prob.shape), dtype=state.log_prob.dtype, device=state.coords.device)
+    acc = torch.empty((n_steps, *state.log_prob.shape[:-1]), dtype=state.coords.dtype, device=state.coords.device)
+    for t in range(n_steps):
+        new = _step_with_rands(state, {k: v[t] for k, v in rands.items()}, log_prob_fn)
+        chain[t], log_prob[t] = new.coords, new.log_prob
+        acc[t] = (new.n_accepted - state.n_accepted).to(acc.dtype).mean(dim=-1)
+        state = new
+    return state, (chain, log_prob, acc)
 
 
 def run_chunk(
@@ -113,17 +159,29 @@ def run_chunk(
     ``generator``. Returns (final_state, (chain (n, W, d), log_prob (n, W),
     per-step mean acceptance (n,))), all on the state's device.
     """
-    W, d = state.coords.shape
     if rands is None:
         if generator is None:
             raise ValueError("run_chunk needs a generator or injected draws")
-        rands = pregen_rands(n_steps, W, generator, state.coords.dtype)
-    chain = torch.empty((n_steps, W, d), dtype=state.coords.dtype, device=state.coords.device)
-    log_prob = torch.empty((n_steps, W), dtype=state.log_prob.dtype, device=state.coords.device)
-    acc = torch.empty((n_steps,), dtype=state.coords.dtype, device=state.coords.device)
-    for t in range(n_steps):
-        new = _step_with_rands(state, {k: v[t] for k, v in rands.items()}, log_prob_fn)
-        chain[t], log_prob[t] = new.coords, new.log_prob
-        acc[t] = (new.n_accepted - state.n_accepted).to(acc.dtype).mean()
-        state = new
-    return state, (chain, log_prob, acc)
+        rands = pregen_rands(n_steps, state.coords.shape[0], generator, state.coords.dtype)
+    return _run_steps(state, log_prob_fn, n_steps, rands)
+
+
+def run_chunk_batched(
+    states: EnsembleState,
+    log_prob_fn: LogProbFn,
+    n_steps: int,
+    generators: Sequence[torch.Generator] | None = None,
+    rands: dict[str, torch.Tensor] | None = None,
+):
+    """Advance P independent ensembles (state leaves (P, W, ...)) by ``n_steps``.
+
+    Draws come from ``rands`` when given (``pregen_rands_batched`` layout),
+    else one ``pregen_rands`` per point from ``generators[p]``. Returns
+    (final_states, (chain (n, P, W, d), log_prob (n, P, W), per-step mean
+    acceptance (n, P))).
+    """
+    if rands is None:
+        if generators is None or len(generators) != states.coords.shape[0]:
+            raise ValueError("run_chunk_batched needs one generator per point or injected draws")
+        rands = pregen_rands_batched(n_steps, states.coords.shape[1], generators, states.coords.dtype)
+    return _run_steps(states, log_prob_fn, n_steps, rands)

@@ -73,6 +73,12 @@ class _LMLMatmul(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        if g.is_cuda:
+            # Autograd runs this on its own device thread, where no CUDA
+            # context is current yet, and cuBLAS (the first call below) would
+            # warn and bind one itself. A runtime call on the stream binds the
+            # device's primary context to this thread first.
+            torch.cuda.current_stream(g.device).query()
         log_ls, log_noise, log_constant, D2, alpha, invL = ctx.saved_tensors
         cfg = ctx.cfg
         Kinv = invL.mT @ invL

@@ -1,10 +1,11 @@
 """Build and bind the hand-written CUDA kernels under ``csrc/``.
 
-Each ``csrc/*.cu`` file has a plain C interface. At first use it is compiled
-with ``nvcc`` for ``sm_90a`` into a shared library under
-``build/bayesian_inference_tpu_torch/`` at the repository root, and loaded
-with ``ctypes``. The library's file name carries a hash of its source, so an
-edited source is always rebuilt. Nothing is built or loaded at import time.
+Each ``csrc/*.cu`` file has a plain C interface (and may include the shared
+``csrc/*.cuh`` headers). At first use it is compiled with ``nvcc`` for
+``sm_90a`` into a shared library under ``build/bayesian_inference_tpu_torch/``
+at the repository root, and loaded with ``ctypes``. The library's file name
+carries a hash of its source and the headers, so an edited source is always
+rebuilt. Nothing is built or loaded at import time.
 
 Every C entry launches on the stream it is given and returns
 ``cudaGetLastError()``; ``NativeKernel.launch`` raises if that is not 0 and
@@ -19,6 +20,7 @@ import hashlib
 import os
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -47,8 +49,12 @@ class NativeKernel:
         self._lib: ctypes.CDLL | None = None
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:12]
-        return BUILD_DIR / f"{self.source.stem}-{digest}.so"
+        """The library's path, named by a hash of the source and of every
+        header under ``csrc/`` (the sources include them)."""
+        digest = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC_DIR.glob("*.cuh")):
+            digest.update(header.read_bytes())
+        return BUILD_DIR / f"{self.source.stem}-{digest.hexdigest()[:12]}.so"
 
     def build(self) -> ctypes.CDLL:
         """Compile (when the library for this source is missing) and load."""
@@ -86,6 +92,14 @@ class NativeKernel:
         if rc != 0:
             raise RuntimeError(f"{entry} failed: {lib.error_string(rc).decode()} (cudaError {rc})")
         self.launches += 1
+
+
+def build_all(kernels) -> None:
+    """Build every kernel at once: one ``nvcc`` process per source, all
+    started together."""
+    kernels = list(kernels)
+    with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
+        list(pool.map(NativeKernel.build, kernels))
 
 
 def check_cuda_operands(name: str, *tensors: torch.Tensor) -> None:

@@ -2,7 +2,8 @@
 
 Port of ``bayesian_inference_tpu.ops.cholesky``: each column step is one
 rank-1 downdate over the whole batch. It is the plain PyTorch version of the
-fused block-MVN kernel's factorisation (ops/fused_mvn.py).
+factorisation that the fused block-MVN kernel (ops/fused_mvn.py) and the
+tiny-MVN kernel (ops/tiny_mvn.py) run.
 """
 
 from __future__ import annotations
@@ -39,10 +40,15 @@ def tiny_solve_lower(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(ys, dim=-1)
 
 
-def tiny_mvn_loglike(dY: torch.Tensor, cov: torch.Tensor) -> torch.Tensor:
-    """Unnormalized MVN loglike via the unrolled factorization."""
+def tiny_mvn_terms(dY: torch.Tensor, cov: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(quad, half_logdet) = (|L^-1 dY|^2, sum log diag L), cov = L L^T, via
+    the unrolled factorization."""
     L = tiny_cholesky(cov)
     e = tiny_solve_lower(L, dY)
-    quad = (e * e).sum(-1)
-    half_logdet = torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+    return (e * e).sum(-1), torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+
+
+def tiny_mvn_loglike(dY: torch.Tensor, cov: torch.Tensor) -> torch.Tensor:
+    """Unnormalized MVN loglike via the unrolled factorization."""
+    quad, half_logdet = tiny_mvn_terms(dY, cov)
     return -0.5 * quad - half_logdet

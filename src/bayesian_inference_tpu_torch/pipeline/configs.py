@@ -210,7 +210,7 @@ class MCMCConfig:
         self.checkpoint_every = int(mcmc.get("checkpoint_every", 0) or 0) or None
         self.chain_transfer = str(mcmc.get("chain_transfer", "") or "").lower()
         # 'block' = per-observable covariance blocks (reference parity);
-        # 'lowrank' = full cross-observable covariance (not ported yet)
+        # 'lowrank' = full cross-observable covariance (Woodbury identity)
         self.likelihood_mode = mcmc.get("likelihood_mode", "block")
 
         conf = self.analysis_config["parameters"].get("closure", {}).get("confidence", 0.9)

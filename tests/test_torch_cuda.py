@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from bayesian_inference_tpu_torch.ops import blocked_cholesky as bc
-from bayesian_inference_tpu_torch.ops import fused_mvn
+from bayesian_inference_tpu_torch.ops import fused_mvn, tiny_mvn
 
 pytestmark = pytest.mark.cuda
 
@@ -88,6 +88,88 @@ def test_fused_block_mvn_kernel_matches_plain(device, n_obs, nb, k, W):
     assert torch.equal(ll, fused_mvn.fused_block_mvn_loglike(*ops))  # deterministic
 
 
+def test_fused_block_mvn_per_point_offsets_match_single_point_launches(device):
+    """K1 with one d0 table per point (walkers point-major, Wh = 50 not a
+    multiple of the 4 walkers of a thread block): bit-equal to one launch per
+    point, and within f32 rounding of the float64 plain version."""
+    P, Wh, n_obs, nb, k = 3, 50, 7, 16, 41
+    U, D, _, z, v = _mvn(n_obs, nb, k, P * Wh, seed=5)
+    d0 = np.random.default_rng(6).normal(size=(P, n_obs, nb))
+    ops64 = [torch.tensor(x, device=device) for x in (U, D, d0, z, v)]
+    U32, D32, d032, z32, v32 = (x.float() for x in ops64)
+    ll = fused_mvn.fused_block_mvn_loglike(U32, D32, d032, z32, v32)
+    single = torch.cat([
+        fused_mvn.fused_block_mvn_loglike(U32, D32, d032[p].contiguous(), z32[p * Wh:(p + 1) * Wh].contiguous(),
+                                          v32[p * Wh:(p + 1) * Wh].contiguous())
+        for p in range(P)
+    ])
+    torch.cuda.synchronize()
+    assert torch.equal(ll, single)
+    ref = fused_mvn.fused_block_mvn_plain(*ops64)
+    torch.testing.assert_close(ll.double(), ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+
+
+def _capacitance(B, k, seed=7):
+    rng = np.random.default_rng(seed)
+    Wf = rng.normal(size=(200, k)) * 0.1
+    v = rng.uniform(0.01, 0.5, (B, k))
+    M = Wf.T @ Wf + np.einsum("bk,kj->bkj", 1.0 / v, np.eye(k))
+    return rng.normal(size=(B, k)), M
+
+
+@pytest.mark.parametrize("B,nb", [(1, 1), (50, 41), (1500, 41), (7, 48)])
+def test_block_mvn_kernel_matches_plain(device, B, nb):
+    dY64, C64 = (torch.tensor(x, device=device) for x in _capacitance(B, nb))
+    dY, C = dY64.float(), C64.float()
+    before = tiny_mvn.KERNEL.launches
+    ll = tiny_mvn.block_mvn_loglike(dY, C)
+    torch.cuda.synchronize()
+    assert tiny_mvn.KERNEL.launches == before + 1
+    ref = tiny_mvn.block_mvn_plain(dY64, C64)
+    assert ll.shape == (B,) and ll.dtype == torch.float32
+    torch.testing.assert_close(ll.double(), ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+    assert torch.equal(ll, tiny_mvn.block_mvn_loglike(dY, C))  # deterministic
+    # leading batch dimensions fold into one batch
+    ll2 = tiny_mvn.block_mvn_loglike(dY.reshape(1, B, nb), C.reshape(1, B, nb, nb))
+    assert torch.equal(ll2[0], ll)
+
+
+def test_block_mvn_kernel_nan_only_in_the_non_spd_instance(device):
+    dY, C = (torch.tensor(x, device=device).float() for x in _capacitance(6, 41))
+    C[2] = -C[2]
+    ll = tiny_mvn.block_mvn_loglike(dY, C)
+    torch.cuda.synchronize()
+    assert torch.isnan(ll[2])
+    assert torch.isfinite(ll[[0, 1, 3, 4, 5]]).all()
+
+
+def test_lml_backward_on_the_card_raises_no_warning(device):
+    """The GP fit's closed-form backward runs on autograd's device thread; in
+    a fresh process with warnings as errors, a fit on the card must not hit
+    cuBLAS's "no current CUDA context" warning."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = (
+        "import numpy as np, torch\n"
+        "from bayesian_inference_tpu_torch.models import gp_fit\n"
+        "from bayesian_inference_tpu_torch.ops.gram import KernelConfig\n"
+        "rng = np.random.default_rng(0)\n"
+        "X = torch.tensor(rng.uniform(0, 1, (40, 3)), device='cuda', dtype=torch.float32)\n"
+        "Y = torch.sin(3 * X)\n"
+        "spec = gp_fit.GPFitSpec(cfg=KernelConfig(nu=1.5), theta0=np.zeros(4), log_lo=np.full(4, -4.0),\n"
+        "                        log_hi=np.full(4, 2.0), n_restarts=2, n_iters=5, alpha_jitter=1e-6)\n"
+        "post = gp_fit.fit_gps(spec, X, Y, generator=torch.Generator(device='cuda').manual_seed(0))\n"
+        "torch.cuda.synchronize()\n"
+        "assert torch.isfinite(post.lml).all(), post.lml\n"
+    )
+    src = Path(__file__).resolve().parents[1] / "src"
+    proc = subprocess.run([sys.executable, "-W", "error", "-c", code], cwd=src, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(device):
     A = torch.tensor(_spd(2, 8), device=device)
     with pytest.raises(TypeError, match="float32"):
@@ -102,3 +184,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(device):
     ops = [torch.tensor(x, device=device).float() for x in _mvn(2, 8, 3, 4)]
     with pytest.raises(ValueError, match="shape mismatch"):
         fused_mvn.fused_block_mvn_loglike(ops[0], ops[1], ops[2], ops[3][:, :2], ops[4])
+    dY, C = (torch.tensor(x, device=device) for x in _capacitance(4, 41))
+    with pytest.raises(TypeError, match="float32"):
+        tiny_mvn.block_mvn_loglike(dY, C)
+    with pytest.raises(ValueError, match="contiguous"):
+        tiny_mvn.block_mvn_loglike(dY.float(), C.float().transpose(-1, -2))
+    dY, C = (torch.tensor(x, device=device).float() for x in _capacitance(4, 49))
+    with pytest.raises(ValueError, match="no CUDA kernel"):
+        tiny_mvn.block_mvn_loglike(dY, C)

@@ -1,7 +1,8 @@
-"""Port parity of the sampling half of the main path: block-mode likelihood,
-stretch move, chain statistics and run_mcmc, fed the JAX package's fitted
-emulator artifacts on the bundled fixture; plus the port's own
-fit-then-sample run and its import hygiene."""
+"""Port parity of the sampling half of the main path: block- and lowrank-mode
+likelihoods (also with swapped residual offsets, one per closure point),
+stretch move, host and device chain statistics and run_mcmc, fed the JAX
+package's fitted emulator artifacts on the bundled fixture; plus the port's
+own fit-then-sample run and its import hygiene."""
 
 import subprocess
 import sys
@@ -59,29 +60,92 @@ def fixture_run(tmp_path_factory):
     exp = jobs.data_array_from_h5(jemu.output_dir, "observables.h5", observable_filter=jemu.observable_filter)
     box = ac["parameterization"]["exponential"]
     lo, hi = np.asarray(box["min"]), np.asarray(box["max"])
-    jlike = jlik.build_likelihood(jemu, artifacts, exp, theta_min=lo, theta_max=hi)
-    tlike = tlik.build_likelihood(temu, artifacts, exp, theta_min=lo, theta_max=hi, observables=observables)
-    return SimpleNamespace(path=path, tmp=tmp, jmcmc=jmcmc, temu=temu, tmcmc=tmcmc, artifacts=artifacts,
+    jlike = {mode: jlik.build_likelihood(jemu, artifacts, exp, theta_min=lo, theta_max=hi, mode=mode)
+             for mode in ("block", "lowrank")}
+    tlike = {mode: tlik.build_likelihood(temu, artifacts, exp, theta_min=lo, theta_max=hi, mode=mode,
+                                         observables=observables)
+             for mode in ("block", "lowrank")}
+    return SimpleNamespace(path=path, tmp=tmp, jemu=jemu, jmcmc=jmcmc, temu=temu, tmcmc=tmcmc, artifacts=artifacts,
                            observables=observables, exp=exp, lo=lo, hi=hi, jlike=jlike, tlike=tlike)
 
 
-def test_block_log_posterior_matches_jax(fixture_run):
-    """log_posterior on JAX-fitted artifacts, inside and outside the prior box:
-    rtol 1e-8 where finite and the same -inf pattern."""
-    r = fixture_run
-    rng = np.random.default_rng(0)
-    theta = r.lo + (r.hi - r.lo) * rng.uniform(0.02, 0.98, (12, r.lo.size))
+def _thetas(r, n=12, seed=0):
+    """n positions in the prior box, four of them outside (one on the boundary)."""
+    rng = np.random.default_rng(seed)
+    theta = r.lo + (r.hi - r.lo) * rng.uniform(0.02, 0.98, (n, r.lo.size))
     theta[[2, 5, 9], [0, 3, 5]] = [r.lo[0] - 0.1, r.hi[3] + 1.0, r.hi[5] * 2]
     theta[7] = r.lo  # on the boundary: outside (the box is open)
-    ref = np.asarray(r.jlike.log_posterior(jnp.asarray(theta)))
-    ours = to_np(r.tlike.log_posterior(t64(theta)))
+    return theta
+
+
+def _log_posterior_matches_jax(r, mode):
+    """log_posterior on JAX-fitted artifacts, inside and outside the prior box:
+    rtol 1e-8 where finite and the same -inf pattern."""
+    theta = _thetas(r)
+    ref = np.asarray(r.jlike[mode].log_posterior(jnp.asarray(theta)))
+    ours = to_np(r.tlike[mode].log_posterior(t64(theta)))
     outside = np.isneginf(ref)
     assert outside.sum() == 4
     np.testing.assert_array_equal(np.isneginf(ours), outside)
     np.testing.assert_allclose(ours[~outside], ref[~outside], rtol=1e-8)
-    assert len(r.tlike.U) == len(r.jlike.U)  # same bucket layout
-    for ours_b, ref_b in zip(r.tlike.U, r.jlike.U):
+    assert len(r.tlike[mode].U) == len(r.jlike[mode].U)  # same bucket layout
+    for ours_b, ref_b in zip(r.tlike[mode].U, r.jlike[mode].U):
         np.testing.assert_array_equal(to_np(ours_b), np.asarray(ref_b))
+    if mode == "lowrank":
+        for name in ("b", "G", "c0", "half_logdet_D", "U", "d0"):
+            np.testing.assert_allclose(to_np(getattr(r.tlike[mode].wb, name)),
+                                       np.asarray(getattr(r.jlike[mode].wb, name)), rtol=1e-10, atol=1e-12)
+
+
+def test_block_log_posterior_matches_jax(fixture_run):
+    _log_posterior_matches_jax(fixture_run, "block")
+
+
+def test_lowrank_log_posterior_matches_jax(fixture_run):
+    """Lowrank mode: also the Woodbury pieces against JAX's (rtol 1e-10)."""
+    _log_posterior_matches_jax(fixture_run, "lowrank")
+
+
+@pytest.mark.parametrize("mode", ["block", "lowrank"])
+def test_log_posterior_with_d0_matches_jax(fixture_run, mode):
+    """The closure batch's likelihood: two validation points' pseudodata as
+    residual offsets (bucketed in block mode, flat in lowrank mode), equal to
+    JAX's offsets; the batched log-posterior over (P, W, d) walkers and the
+    single-point one against JAX's log_posterior_with_d0 per point (rtol 1e-8,
+    same -inf pattern)."""
+    r = fixture_run
+    ys = np.stack([jobs.data_array_from_h5(r.jemu.output_dir, "observables.h5", pseudodata_index=i,
+                                           observable_filter=r.jemu.observable_filter,
+                                           rng=np.random.default_rng(i))["y"] for i in (0, 1)])
+    if mode == "block":
+        jd0 = jlik.pad_residual_offsets(r.jemu, r.artifacts, ys)
+        td0 = tlik.pad_residual_offsets(r.temu, r.artifacts, ys, observables=r.observables)
+        for a, b in zip(td0, jd0):
+            np.testing.assert_array_equal(a, b)
+        td0 = tuple(t64(d) for d in td0)
+        jpoint, tpoint = (lambda p: tuple(jnp.asarray(d[p]) for d in jd0)), (lambda p: tuple(d[p] for d in td0))
+    else:
+        jd0 = jlik.residual_offsets_flat(r.jemu, r.artifacts, ys)
+        td0 = tlik.residual_offsets_flat(r.temu, r.artifacts, ys, observables=r.observables)
+        np.testing.assert_array_equal(td0, jd0)
+        td0 = t64(td0)
+        jpoint, tpoint = (lambda p: jnp.asarray(jd0[p])), (lambda p: td0[p])
+    theta = np.stack([_thetas(r, seed=1), _thetas(r, seed=2)])
+    batched = to_np(r.tlike[mode].log_posterior_with_d0(td0, t64(theta)))
+    assert batched.shape == (2, 12)
+    for p in range(2):
+        ref = np.asarray(r.jlike[mode].log_posterior_with_d0(jpoint(p), jnp.asarray(theta[p])))
+        single = to_np(r.tlike[mode].log_posterior_with_d0(tpoint(p), t64(theta[p])))
+        outside = np.isneginf(ref)
+        for ours in (batched[p], single):
+            np.testing.assert_array_equal(np.isneginf(ours), outside)
+            np.testing.assert_allclose(ours[~outside], ref[~outside], rtol=1e-8)
+
+
+def test_unknown_likelihood_mode_is_refused(fixture_run):
+    r = fixture_run
+    with pytest.raises(ValueError, match="unknown likelihood mode"):
+        tlik.build_likelihood(r.temu, r.artifacts, r.exp, r.lo, r.hi, mode="dense", observables=r.observables)
 
 
 def test_stretch_move_with_injected_jax_draws(fixture_run):
@@ -91,12 +155,13 @@ def test_stretch_move_with_injected_jax_draws(fixture_run):
     r = fixture_run
     key = jax.random.key(3)
     x0 = r.lo + (r.hi - r.lo) * np.random.default_rng(1).uniform(0.1, 0.9, (N_WALKERS, r.lo.size))
-    fn = r.jlike.log_posterior
+    fn = r.jlike["block"].log_posterior
     _, (jchain, jlogp, jacc) = jstretch.run_chunk(jstretch.init_state(key, fn, jnp.asarray(x0)), fn, 20)
     rands, _ = jstretch._pregen_rands(key, 20, N_WALKERS, jnp.float64, True)
     rands = {k: torch.tensor(np.asarray(v)) for k, v in rands.items()}
-    state = tstretch.init_state(r.tlike.log_posterior, t64(x0))
-    final, (chain, logp, acc) = tstretch.run_chunk(state, r.tlike.log_posterior, 20, rands=rands)
+    tfn = r.tlike["block"].log_posterior
+    state = tstretch.init_state(tfn, t64(x0))
+    final, (chain, logp, acc) = tstretch.run_chunk(state, tfn, 20, rands=rands)
     np.testing.assert_allclose(to_np(chain), np.asarray(jchain), rtol=1e-10)
     np.testing.assert_allclose(to_np(logp), np.asarray(jlogp), rtol=1e-10)
     np.testing.assert_array_equal(to_np(acc), np.asarray(jacc))
@@ -127,25 +192,34 @@ def _jax_run_mcmc_draws(like, config, lo, hi, seed=0):
             "production": draws(k3, config.n_sampling_steps)}, burn_log_prob
 
 
-def test_run_mcmc_matches_jax_under_injected_draws(fixture_run):
-    """The slice's sampling half as a whole: JAX artifacts in, the port's
-    run_mcmc out. With JAX's draws injected, the burn-in log-probs equal
-    JAX's (rtol 1e-8), and the production chain equals the chain JAX's own
-    run_mcmc writes to mcmc.h5."""
+def _run_mcmc_matches_jax_under_injected_draws(r, mode):
+    """JAX artifacts in, the port's run_mcmc out. With JAX's draws injected,
+    the burn-in log-probs equal JAX's (rtol 1e-8), and the production chain
+    equals the chain JAX's own run_mcmc writes to mcmc.h5."""
     from bayesian_inference_tpu.io.hdf5 import read_dict_from_h5
 
-    r = fixture_run
-    draws, jburn = _jax_run_mcmc_draws(r.jlike, r.jmcmc, r.lo, r.hi)
+    draws, jburn = _jax_run_mcmc_draws(r.jlike[mode], r.jmcmc, r.lo, r.hi)
     out = trunner.run_mcmc(r.tmcmc, emulation_results=r.artifacts, observables=r.observables, write=False,
-                           draws=draws)
+                           draws=draws, mode=mode)
     np.testing.assert_allclose(out["burn_log_prob"], jburn, rtol=1e-8)
 
-    jrunner.run_mcmc(r.jmcmc, seed=0)
+    jrunner.run_mcmc(r.jmcmc, seed=0, mode=mode)
     jout = read_dict_from_h5(r.jmcmc.mcmc_output_dir, "mcmc.h5", verbose=False)
     np.testing.assert_allclose(out["log_prob"], jout["log_prob"], rtol=1e-8)
     np.testing.assert_allclose(out["chain"], jout["chain"], rtol=1e-10)
     np.testing.assert_allclose(out["acceptance_fraction"], jout["acceptance_fraction"], rtol=1e-12)
     np.testing.assert_allclose(out["split_rhat"], jout["split_rhat"], rtol=1e-10)
+
+
+def test_run_mcmc_matches_jax_under_injected_draws(fixture_run):
+    """The slice's sampling half as a whole (block mode)."""
+    _run_mcmc_matches_jax_under_injected_draws(fixture_run, "block")
+
+
+def test_lowrank_run_mcmc_matches_jax_under_injected_draws(fixture_run):
+    """The lowrank analysis as a whole: Woodbury likelihood and the tiny-MVN
+    kernel's plain version inside the port's run_mcmc."""
+    _run_mcmc_matches_jax_under_injected_draws(fixture_run, "lowrank")
 
 
 def test_port_fit_then_sample_on_fixture(fixture_run, tmp_path):
@@ -174,10 +248,14 @@ def test_port_fit_then_sample_on_fixture(fixture_run, tmp_path):
                                2 * tstats.integrated_time(sliced, quiet=True))
 
 
+def _random_walk(shape, seed=8):
+    rng = np.random.default_rng(seed)
+    return np.cumsum(rng.normal(size=shape), axis=0) * 0.05 + rng.normal(size=shape)
+
+
 def test_chain_statistics_match_jax():
     """integrated_time and split_rhat on one random-walk chain, rtol 1e-10."""
-    rng = np.random.default_rng(8)
-    chain = np.cumsum(rng.normal(size=(600, 8, 3)), axis=0) * 0.05 + rng.normal(size=(600, 8, 3))
+    chain = _random_walk((600, 8, 3))
     np.testing.assert_allclose(tstats.split_rhat(chain), jstats.split_rhat(chain), rtol=1e-10)
     np.testing.assert_allclose(tstats.integrated_time(chain, quiet=True),
                                jstats.integrated_time(chain, quiet=True), rtol=1e-10)
@@ -185,10 +263,44 @@ def test_chain_statistics_match_jax():
         tstats.integrated_time(chain)
 
 
-def test_lowrank_mode_is_not_ported_yet(fixture_run):
-    r = fixture_run
-    with pytest.raises(NotImplementedError, match="lowrank"):
-        tlik.build_likelihood(r.temu, r.artifacts, r.exp, r.lo, r.hi, mode="lowrank", observables=r.observables)
+def test_integrated_time_from_a_power_spectrum_matches_jax():
+    """integrated_time(mean_power=...) on the same spectrum as JAX's
+    (rtol 1e-8); the port's device spectrum and R-hat, computed on a CPU
+    tensor, against JAX's device functions and its host estimators."""
+    chain = _random_walk((600, 8, 3), seed=9)
+    power, nfft = tstats.device_mean_power(torch.tensor(chain))
+    jpower, jnfft = jstats.device_mean_power(jnp.asarray(chain))
+    assert nfft == jnfft == 2048
+    np.testing.assert_allclose(power, np.asarray(jpower), rtol=1e-10, atol=1e-14)
+    ours = tstats.integrated_time(chain, quiet=True, mean_power=(power, nfft))
+    np.testing.assert_allclose(ours, jstats.integrated_time(chain, quiet=True, mean_power=(power, nfft)), rtol=1e-8)
+    np.testing.assert_allclose(ours, jstats.integrated_time(chain, quiet=True), rtol=1e-8)
+    with pytest.raises(tstats.AutocorrError):
+        tstats.integrated_time(chain, mean_power=(power, nfft))
+    np.testing.assert_allclose(tstats.device_split_rhat(torch.tensor(chain)), jstats.split_rhat(chain), rtol=1e-10)
+
+
+def test_batched_and_device_closure_statistics_match_jax():
+    """integrated_time_batched on (n_t, P, W, d) chains and the per-point
+    device spectra and R-hats, against JAX's batched and per-point host
+    estimators (rtol 1e-8; R-hat 1e-10)."""
+    chain = _random_walk((500, 3, 8, 2), seed=10)
+    tau, reliable = tstats.integrated_time_batched(chain)
+    jtau, jreliable = jstats.integrated_time_batched(chain)
+    np.testing.assert_allclose(tau, jtau, rtol=1e-8)
+    np.testing.assert_array_equal(reliable, jreliable)
+    powers, nfft, rhat = tstats.device_closure_stats(torch.tensor(chain))
+    jpowers, jnfft, jrhat = jstats.device_closure_stats([jnp.asarray(chain)])
+    assert nfft == jnfft
+    np.testing.assert_allclose(powers, jpowers, rtol=1e-10, atol=1e-14)
+    np.testing.assert_allclose(rhat, jrhat, rtol=1e-10)
+    for p in range(3):
+        tau_p, rel_p = tstats.integrated_time_from_power(powers[p], nfft, 500, out_dtype=np.float64)
+        jtau_p, jrel_p = jstats.integrated_time_from_power(jpowers[p], nfft, 500, out_dtype=np.float64)
+        np.testing.assert_allclose(tau_p, jtau_p, rtol=1e-10)
+        np.testing.assert_allclose(tau_p, jstats.integrated_time(chain[:, p], quiet=True), rtol=1e-8)
+        np.testing.assert_array_equal(rel_p, jrel_p)
+        np.testing.assert_allclose(rhat[p], jstats.split_rhat(chain[:, p]), rtol=1e-10)
 
 
 def test_port_never_imports_jax():

@@ -1,6 +1,7 @@
 """Port parity of the device ops: GP kernels, kernel K3's blocked Cholesky
-inverse and kernel K1's fused block-MVN log-likelihood (plain versions), each
-against the JAX package on the same float64 inputs."""
+inverse, kernel K1's fused block-MVN log-likelihood, kernel K4's tiny-MVN
+log-likelihood (plain versions) and the Woodbury likelihood, each against the
+JAX package on the same float64 inputs."""
 
 import jax
 import jax.numpy as jnp
@@ -11,10 +12,13 @@ from torch_parity import t64, to_np
 
 from bayesian_inference_tpu.ops import blocked_cholesky as jbc
 from bayesian_inference_tpu.ops import gram as jgram
+from bayesian_inference_tpu.ops import mvn as jwood
 from bayesian_inference_tpu.ops import pallas_mvn as jmvn
 from bayesian_inference_tpu_torch.ops import blocked_cholesky as tbc
 from bayesian_inference_tpu_torch.ops import fused_mvn as tmvn
 from bayesian_inference_tpu_torch.ops import gram as tgram
+from bayesian_inference_tpu_torch.ops import mvn as twood
+from bayesian_inference_tpu_torch.ops import tiny_mvn
 from bayesian_inference_tpu_torch.ops.cholesky import tiny_mvn_loglike
 from bayesian_inference_tpu_torch.ops.mvn import mvn_loglike_dense
 
@@ -144,6 +148,91 @@ def test_mvn_loglike_dense_matches_scipy(n):
         np.testing.assert_allclose(to_np(tiny_mvn_loglike(t64(dY), t64(C))), ref, rtol=1e-10)
 
 
+def test_fused_block_mvn_plain_per_point_offsets_match_per_point_calls():
+    """K1's plain version with one d0 table per point (walkers point-major)
+    equals one call per point, at rtol 1e-12 (float64)."""
+    P, Wh = 3, 5
+    U, D, _, z, v = _mvn_operands(np.random.default_rng(12), 4, 8, 6, P * Wh)
+    d0 = np.random.default_rng(13).normal(size=(P, 4, 8))
+    ours = to_np(tmvn.fused_block_mvn_loglike(*map(t64, (U, D, d0, z, v))))
+    per_point = np.concatenate([
+        to_np(tmvn.fused_block_mvn_loglike(*map(t64, (U, D, d0[p], z[p * Wh:(p + 1) * Wh], v[p * Wh:(p + 1) * Wh]))))
+        for p in range(P)
+    ])
+    np.testing.assert_allclose(ours, per_point, rtol=1e-12)
+
+
+def _capacitance_operands(rng, lead, nb):
+    """Capacitance-shaped (dY, C) of the lowrank likelihood: C = G + diag(1/v)."""
+    Wf = rng.normal(size=(3 * nb, nb)) * 0.3
+    v = rng.uniform(0.05, 1.0, size=(*lead, nb))
+    C = Wf.T @ Wf + np.einsum("...k,kj->...kj", 1.0 / v, np.eye(nb))
+    return rng.normal(size=(*lead, nb)), C
+
+
+@pytest.mark.parametrize("nb", [5, 41, 49])
+def test_block_mvn_plain_matches_jax(nb):
+    """The plain version of kernel K4 against JAX's block_mvn_loglike running
+    its Pallas kernel in interpret mode (nb <= 48) and against its default
+    route, at rtol 1e-10 (float64); nb = 49 routes to the dense path on both
+    sides. Leading batch dimensions are kept."""
+    dY, C = _capacitance_operands(np.random.default_rng(nb), (2, 3), nb)
+    ours = to_np(tiny_mvn.block_mvn_loglike(t64(dY), t64(C)))
+    assert ours.shape == (2, 3)
+    np.testing.assert_allclose(ours, to_np(tiny_mvn.block_mvn_plain(t64(dY), t64(C))), rtol=0)
+    jdY, jC = jnp.asarray(dY), jnp.asarray(C)
+    np.testing.assert_allclose(ours, np.asarray(jmvn.block_mvn_loglike(jdY, jC)), rtol=1e-10)
+    if nb <= tiny_mvn.MAX_NB:
+        np.testing.assert_allclose(ours, np.asarray(jmvn.block_mvn_loglike(jdY, jC, interpret=True)), rtol=1e-10)
+    quad, half_logdet = tiny_mvn.mvn_terms(t64(dY), t64(C))
+    np.testing.assert_allclose(to_np(-0.5 * quad - half_logdet), ours, rtol=1e-14)
+
+
+def _woodbury_operands(seed, F=40, k=6, B=11):
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(F, F))
+    D = A @ A.T / F + 0.5 * np.eye(F)
+    return D, rng.normal(size=(F, k)), rng.normal(size=F), rng.normal(size=(B, k)), rng.uniform(0.1, 2.0, (B, k))
+
+
+def test_woodbury_matches_jax_and_dense():
+    """build_woodbury's fields against JAX's (rtol 1e-10), woodbury_loglike
+    against JAX's and against the dense MVN of C = D + U diag(v) U^T
+    (rtol 1e-9, as tests/test_ops.py holds the JAX one)."""
+    D, U, d0, z, v = _woodbury_operands(21)
+    twn = twood.build_woodbury(t64(D), t64(U), t64(d0))
+    jwn = jwood.build_woodbury(jnp.asarray(D), jnp.asarray(U), jnp.asarray(d0))
+    for name in ("b", "G", "c0", "half_logdet_D", "U", "d0", "L_D", "W"):
+        np.testing.assert_allclose(to_np(getattr(twn, name)), np.asarray(getattr(jwn, name)), rtol=1e-10,
+                                   atol=1e-13, err_msg=name)
+    ours = to_np(twood.woodbury_loglike(twn, t64(z), t64(v)))
+    np.testing.assert_allclose(ours, np.asarray(jwood.woodbury_loglike(jwn, jnp.asarray(z), jnp.asarray(v))),
+                               rtol=1e-9)
+    dY = d0[None, :] + z @ U.T
+    covs = np.stack([D + (U * v[i]) @ U.T for i in range(len(z))])
+    np.testing.assert_allclose(ours, to_np(twood.mvn_loglike_dense(t64(dY), t64(covs))), rtol=1e-9)
+
+
+def test_woodbury_with_d0_matches_a_fresh_build():
+    """with_d0 rebuilds (b, c0) exactly as a build from scratch does, for one
+    offset and for a batch of P; the batched likelihood of (P, Wh, k) walkers
+    equals each point's own."""
+    D, U, d0, z, v = _woodbury_operands(22, B=8)
+    d0s = np.random.default_rng(23).normal(size=(2, d0.size))
+    wn = twood.build_woodbury(t64(D), t64(U), t64(d0))
+    for row in d0s:
+        fresh = twood.build_woodbury(t64(D), t64(U), t64(row))
+        swapped = wn.with_d0(t64(row))
+        for name in ("b", "c0", "d0", "G", "W", "L_D"):
+            np.testing.assert_array_equal(to_np(getattr(swapped, name)), to_np(getattr(fresh, name)), err_msg=name)
+    batched = wn.with_d0(t64(d0s))
+    assert tuple(batched.b.shape) == (2, U.shape[1]) and tuple(batched.c0.shape) == (2,)
+    ll = to_np(twood.woodbury_loglike(batched, t64(z).reshape(2, 4, -1), t64(v).reshape(2, 4, -1)))
+    for p in range(2):
+        single = twood.woodbury_loglike(wn.with_d0(t64(d0s[p])), t64(z[4 * p:4 * p + 4]), t64(v[4 * p:4 * p + 4]))
+        np.testing.assert_allclose(ll[p], to_np(single), rtol=1e-12)
+
+
 def test_kernel_wrappers_reject_other_devices():
     """A wrapper takes the plain version only for CPU tensors; any other
     device that is not CUDA is refused, never silently computed."""
@@ -153,3 +242,5 @@ def test_kernel_wrappers_reject_other_devices():
     ops = [torch.empty(s, device="meta") for s in ((2, 8, 3), (2, 8, 8), (2, 8), (4, 3), (4, 3))]
     with pytest.raises(ValueError, match="unsupported device"):
         tmvn.fused_block_mvn_loglike(*ops)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tiny_mvn.block_mvn_loglike(torch.empty((4, 8), device="meta"), torch.empty((4, 8, 8), device="meta"))
