@@ -16,7 +16,12 @@ launch counts set to 0 just before it and read just after:
 - one lowrank (Woodbury) analysis: ``run_mcmc(mode="lowrank")`` on the same
   fitted emulators;
 - the closure-test batch: ``run_closure_batch`` over the 30 validation
-  points, in lowrank and in block mode.
+  points, in lowrank and in block mode;
+- the steer entry point, ``SteerAnalysis(config=..., write=False)``: table
+  ingest -> preprocessing -> fit -> 5-fold CV of every group -> MCMC
+  checkpointed every 500 steps -> closure batch; then an MCMC run and a
+  closure batch cut during their third chunk and resumed, against
+  uninterrupted runs, and production with and without chunking.
 
 One line per phase; the line before the last is the card's name and power
 limit as ``nvidia-smi`` reports them, the line before that the kernels' JSON
@@ -26,7 +31,8 @@ without a CUDA device or outside a repository checkout.
 
 The run needs no ``h5py`` and no ``yaml``: the configuration is a dict, the
 observables come straight from the table ingest, the emulator artifacts stay
-in memory and the runners are called with ``write=False``.
+in memory and the runners are called with ``write=False``. What it writes
+(tables, the runners' checkpoints) goes under ``build/chip_smoke/``.
 """
 
 from __future__ import annotations
@@ -59,6 +65,14 @@ N_RESTARTS, N_OPT_ITERS = 50, 60
 N_WALKERS, N_BURN, N_STEPS = 100, 200, 2000
 CLOSURE_STEPS = {"lowrank": 1000, "block": 500}
 N_PCS = 41
+# The steer phase: 5-fold CV of every group, and the MCMC production
+# checkpointed every 500 steps. The steer's MCMC and closure stages share one
+# MCMC config, so its closure batch also runs 2,000 steps (checkpointed every
+# quarter, as the steer does); the closure resume check runs at 500 steps.
+STEER_CV_K, STEER_CHECKPOINT_EVERY = 5, 500
+# Production with and without chunking is timed in turns: the steer's own
+# (chunked) run, then this many (one chunk, chunked) pairs, then one chunk.
+STEER_TIMING_PAIRS = 3
 
 # Tolerances, each with its reason:
 # - K3 (f32 Cholesky and inverse of Matern grams, condition numbers up to
@@ -415,10 +429,20 @@ def production_config(work_dir: Path, table_dir: Path, n_walkers: int, n_burn: i
 
 def mcmc_config(n_steps: int):
     """The production MCMC config with ``n_steps`` production steps."""
+    config = production_config(WORK_DIR, WORK_DIR / "production_tables", N_WALKERS, N_BURN, n_steps, N_RESTARTS)
+    return mcmc_config_for(config, n_steps)
+
+
+def mcmc_config_for(config: dict, n_steps: int):
+    """The MCMC config of ``config``'s analysis, with ``n_steps`` production steps."""
+    import copy
+
     from bayesian_inference_tpu_torch.pipeline.configs import MCMCConfig
 
-    config = production_config(WORK_DIR, WORK_DIR / "production_tables", N_WALKERS, N_BURN, n_steps, N_RESTARTS)
-    return MCMCConfig(ANALYSIS, PARAMETERIZATION, config["analyses"][ANALYSIS], config=config)
+    config = copy.deepcopy(config)
+    analysis = config["analyses"][ANALYSIS]
+    analysis["parameters"]["mcmc"]["n_sampling_steps"] = n_steps
+    return MCMCConfig(ANALYSIS, PARAMETERIZATION, analysis, config=config)
 
 
 def phase_slice(device, kernels, n_restarts: int = N_RESTARTS, n_opt_iters: int = N_OPT_ITERS,
@@ -633,6 +657,172 @@ def phase_closure(device, kernels, s: dict, mode: str, n_check: int = 100) -> di
     return launches
 
 
+class Interrupted(Exception):
+    """Raised by the stand-in for a sampler chunk to cut a run short."""
+
+
+def interrupt_after(module, name: str, n_calls: int):
+    """Replace ``module.<name>`` by a wrapper that raises ``Interrupted`` on
+    its call after ``n_calls`` calls, as a run killed during that chunk would
+    stop; returns a function that puts the original back."""
+    inner = getattr(module, name)
+    calls = []
+
+    def wrapper(*args, **kwargs):
+        calls.append(1)
+        if len(calls) > n_calls:
+            raise Interrupted(f"{name} call {len(calls)}")
+        return inner(*args, **kwargs)
+
+    setattr(module, name, wrapper)
+    return lambda: setattr(module, name, inner)
+
+
+def run_interrupted(module, name: str, n_calls: int, fn) -> None:
+    """Run ``fn`` with ``module.<name>`` cut after ``n_calls`` calls; fail
+    unless the cut happened."""
+    restore = interrupt_after(module, name, n_calls)
+    try:
+        fn()
+    except Interrupted:
+        return
+    finally:
+        restore()
+    raise AssertionError(f"resume: the run finished before {name} call {n_calls + 1}")
+
+
+def steer_config(work_dir: Path, table_dir: Path) -> dict:
+    """The steer's configuration at production width: tables ingested in
+    memory, preprocessing with config/example_fixture.yaml's smoothing block
+    (later stages read the preprocessed observables), 5-fold CV of every
+    group, block likelihood, checkpointed MCMC, and the closure batch."""
+    config = production_config(work_dir, table_dir, N_WALKERS, N_BURN, N_STEPS, N_RESTARTS)
+    analysis = config["analyses"][ANALYSIS]
+    for group in analysis["parameters"]["emulators"].values():
+        group.update(cross_validation=True, cross_validation_k=STEER_CV_K)
+    analysis["parameters"]["preprocessing"] = {"smoothing": {
+        "outlier_n_RMS": 2.0, "interpolation_method": "linear", "max_n_feature_outliers_to_interpolate": 2}}
+    analysis["parameters"]["mcmc"].update(checkpoint_every=STEER_CHECKPOINT_EVERY, likelihood_mode="block")
+    config.update(
+        initialize_observables=True, preprocess_input_data=True, fit_emulators=True, run_mcmc=True,
+        run_closure_tests=True, observables_filename="observables_preprocessed.h5",
+        plot={k: False for k in ("input_data", "emulators", "mcmc", "qhat", "closure_tests", "across_analyses")},
+    )
+    return config
+
+
+def phase_steer(device, kernels) -> dict:
+    """The port's steer entry point at production width, in memory
+    (``SteerAnalysis(config=..., write=False)``): ingest -> preprocess -> fit
+    -> 5-fold CV of every group -> MCMC checkpointed every 500 steps -> the
+    closure batch checkpointed every quarter. Then checkpoint resume on the
+    card: an MCMC run and a closure batch, each cut during its third chunk
+    and run again, against uninterrupted runs; and production with and
+    without chunking, in turns, for the cost of checkpointing."""
+    import shutil
+
+    from bayesian_inference_tpu_torch.mcmc import runner
+    from bayesian_inference_tpu_torch.pipeline.configs import MCMCConfig
+    from bayesian_inference_tpu_torch.pipeline.steer import SteerAnalysis
+
+    work_dir = WORK_DIR / "steer"
+    shutil.rmtree(work_dir, ignore_errors=True)  # no stale checkpoint from an earlier run of this script
+    config = steer_config(work_dir, WORK_DIR / "production_tables")
+    analysis = config["analyses"][ANALYSIS]
+    reset(kernels)
+    t = time.perf_counter()
+    result = SteerAnalysis(config=config, device=device, write=False).run_analysis()[f"{ANALYSIS}_{PARAMETERIZATION}"]
+    torch.cuda.synchronize()
+    t_steer = time.perf_counter() - t
+    launches = counts(kernels)
+
+    mcmc = result["mcmc"]
+    logp = mcmc["log_prob"]
+    af = float(np.mean(mcmc["acceptance_fraction"]))
+    closure = result["closure"]
+    af_points = np.array([float(np.mean(closure[i]["acceptance_fraction"])) for i in sorted(closure)])
+    cv = result["cross_validation"]
+    coverage = {name: float(np.mean(np.abs(a["normalized_residuals"]) < 1)) for name, a in cv.items()}
+    print("steer stages (s, stage_timer): " + ", ".join(f"{k} {v:.3f}" for k, v in result["timings"].items())
+          + f"; whole run {t_steer:.3f} s; kernel launches {launches}", flush=True)
+    print(f"steer CV (k={STEER_CV_K}, every group): 1-sigma coverage of the z-scores "
+          + ", ".join(f"{name} {c:.3f}" for name, c in coverage.items())
+          + f" (want ~0.68); z-scores finite: {all(np.isfinite(a['normalized_residuals']).all() for a in cv.values())}",
+          flush=True)
+    print(f"steer MCMC: {N_WALKERS} walkers x ({N_BURN} burn-in + {N_STEPS}) steps, checkpoint every "
+          f"{STEER_CHECKPOINT_EVERY}; log-probs finite: {bool(np.isfinite(logp).all())}, shape {logp.shape}; "
+          f"mean acceptance {af:.4f}; closure batch: {len(closure)} points x {N_STEPS} steps, checkpoint every "
+          f"{N_STEPS // 4}, acceptance per point {af_points.min():.4f}..{af_points.max():.4f}", flush=True)
+    check(launches["diag_chol_inv"] > 0 and launches["fused_block_mvn"] > 0,
+          f"steer: a kernel of the path never launched: {launches}")
+    check(sorted(result["timings"]) == sorted(["initialize", "preprocess", "fit_emulators", "cross_validation",
+                                                "mcmc", "closure"]), f"steer: stages run {sorted(result['timings'])}")
+    check(sorted(cv) == sorted(PRODUCTION_GROUPS), f"steer: CV ran for {sorted(cv)}")
+    check(all(np.isfinite(a["normalized_residuals"]).all() for a in cv.values()), "steer: non-finite CV z-scores")
+    check(logp.shape == (N_STEPS, N_WALKERS) and bool(np.isfinite(logp).all()), "steer: non-finite MCMC log-probs")
+    check(ACCEPTANCE_RANGE[0] < af < ACCEPTANCE_RANGE[1], f"steer: mean acceptance {af:.4f} out of range")
+    check(len(closure) == 30 and bool(((ACCEPTANCE_RANGE[0] < af_points) & (af_points < ACCEPTANCE_RANGE[1])).all()),
+          f"steer: closure acceptance out of range at some point: {af_points.min():.4f}..{af_points.max():.4f}")
+    check(all(np.isfinite(closure[i]["split_rhat"]).all() for i in closure), "steer: non-finite closure R-hat")
+    check(not list(work_dir.rglob("*.pkl")), "steer: a checkpoint was left behind")
+
+    # Resume on the card, and production with and without chunking in turns.
+    mcmc_config = MCMCConfig(ANALYSIS, PARAMETERIZATION, analysis, config=config)
+    inputs = dict(seed=0, device=device, emulation_results=result["emulation"], observables=result["preprocessed"],
+                  write=False)
+
+    def run(checkpoint_every):
+        return runner.run_mcmc(mcmc_config, checkpoint_every=checkpoint_every, **inputs)
+
+    prod = {"chunked": [mcmc["timings"]["production"]], "single": []}
+    for _ in range(STEER_TIMING_PAIRS):
+        prod["single"].append(run(None)["timings"]["production"])
+        again = run(STEER_CHECKPOINT_EVERY)
+        prod["chunked"].append(again["timings"]["production"])
+    prod["single"].append(run(None)["timings"]["production"])
+    run_interrupted(runner, "run_chunk", 2 + 2, lambda: run(STEER_CHECKPOINT_EVERY))
+    resumed = run(STEER_CHECKPOINT_EVERY)
+    same = {key: bool(np.array_equal(resumed[key], mcmc[key]) and np.array_equal(again[key], mcmc[key]))
+            for key in ("chain", "log_prob", "acceptance_fraction")}
+    median = {k: float(np.median(v)) for k, v in prod.items()}
+    spread = {k: float(np.max(v) - np.min(v)) for k, v in prod.items()}
+    cost_ms = 1e3 * (median["chunked"] - median["single"]) / N_STEPS
+    print(f"steer resume, run_mcmc cut during chunk 3 of {N_STEPS // STEER_CHECKPOINT_EVERY} and resumed "
+          f"({resumed['timings']['production']:.3f} s for the rest): bit-equal to the uninterrupted run {same}; "
+          f"production {N_STEPS} steps, chunked every {STEER_CHECKPOINT_EVERY} with checkpoints: "
+          + " / ".join(f"{s:.3f}" for s in prod["chunked"]) + " s, one chunk: "
+          + " / ".join(f"{s:.3f}" for s in prod["single"])
+          + f" s (in turns, the steer's run first); medians {N_STEPS / median['chunked']:.1f} vs "
+          f"{N_STEPS / median['single']:.1f} steps/s, spread (max - min) {spread['chunked']:.3f} / "
+          f"{spread['single']:.3f} s; checkpointing costs {cost_ms:.4f} ms/step (difference of the medians)",
+          flush=True)
+    check(all(same.values()), f"steer resume: run_mcmc not bit-equal after resume: {same}")
+
+    n_closure = CLOSURE_STEPS["block"]
+    cadence = n_closure // 4
+    closure_config = mcmc_config_for(config, n_closure)
+    indices = list(range(len(closure)))
+    batch = dict(seed=0, device=device, emulation_results=result["emulation"], observables=result["preprocessed"],
+                 write=False, checkpoint_every=cadence)
+    whole = runner.run_closure_batch(closure_config, indices, **batch)
+    run_interrupted(runner, "run_chunk_batched", 2 + 2,
+                    lambda: runner.run_closure_batch(closure_config, indices, **batch))
+    back = runner.run_closure_batch(closure_config, indices, **batch)
+    same = {key: all(np.array_equal(back[i][key], whole[i][key]) for i in indices)
+            for key in ("chain", "log_prob", "acceptance_fraction")}
+    finite = all(np.isfinite(whole[i]["log_prob"]).all() for i in indices)
+    af_whole = np.array([float(np.mean(whole[i]["acceptance_fraction"])) for i in indices])
+    print(f"steer resume, closure batch ({len(indices)} points x {n_closure} steps, checkpoint every {cadence}) cut "
+          f"during chunk 3 and resumed: bit-equal to the uninterrupted batch {same}; log-probs finite per point: "
+          f"{finite}; acceptance per point {af_whole.min():.4f}..{af_whole.max():.4f}", flush=True)
+    check(all(same.values()), f"steer resume: closure batch not bit-equal after resume: {same}")
+    check(finite, "steer resume: non-finite closure log-probs")
+    check(bool(((ACCEPTANCE_RANGE[0] < af_whole) & (af_whole < ACCEPTANCE_RANGE[1])).all()),
+          "steer resume: closure acceptance out of range")
+    check(not list(work_dir.rglob("*.pkl")), "steer resume: a checkpoint was left behind")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script runs on a CUDA card only",
@@ -676,9 +866,10 @@ def main() -> int:
     path_launches.append(phase_lowrank(device, kernels, reuse))
     for mode in ("lowrank", "block"):
         path_launches.append(phase_closure(device, kernels, reuse, mode))
+    path_launches.append(phase_steer(device, kernels))
     total = {name: sum(p[name] for p in path_launches) for name in kernels}
-    print(f"kernel launches over the four path runs (fit->sample, lowrank analysis, lowrank and block closure "
-          f"batches): {total}; whole script {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"kernel launches over the five path runs (fit->sample, lowrank analysis, lowrank and block closure "
+          f"batches, steer): {total}; whole script {time.perf_counter() - t_start:.1f} s", flush=True)
 
     record = {"kernels": [
         {"name": "diag_chol_inv", "route": "cuda",

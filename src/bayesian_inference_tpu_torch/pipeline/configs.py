@@ -66,6 +66,10 @@ class EmulationGroupConfig:
 
         self.n_restarts = group_cfg["GPR"]["n_restarts"]
         self.alpha = group_cfg["GPR"]["alpha"]
+        # k-fold emulator cross-validation (models/cv.py); same keys and
+        # defaults as the JAX package.
+        self.cross_validation = bool(group_cfg.get("cross_validation", False))
+        self.cross_validation_k = int(group_cfg.get("cross_validation_k", 5))
 
         include = group_cfg.get("observable_list", [])
         exclude = group_cfg.get("observable_exclude_list", [])
@@ -204,10 +208,10 @@ class MCMCConfig:
         self.n_burn_steps = mcmc["n_burn_steps"]
         self.n_sampling_steps = mcmc["n_sampling_steps"]
         self.n_logging_steps = mcmc["n_logging_steps"]
-        # Parsed for schema compatibility. The port's runner has no
-        # checkpointed production and moves every chain losslessly, so it
-        # reads neither value.
+        # Production checkpoint cadence in steps (absent/0: one chunk, no
+        # checkpoint); the steer passes it to run_mcmc.
         self.checkpoint_every = int(mcmc.get("checkpoint_every", 0) or 0) or None
+        # Parsed for schema compatibility; the port moves every chain losslessly.
         self.chain_transfer = str(mcmc.get("chain_transfer", "") or "").lower()
         # 'block' = per-observable covariance blocks (reference parity);
         # 'lowrank' = full cross-observable covariance (Woodbury identity)
@@ -226,3 +230,24 @@ class MCMCConfig:
 
     def parameterization_spec(self) -> dict[str, Any]:
         return self.analysis_config["parameterization"][self.parameterization]
+
+
+@dataclass
+class PreprocessingConfig:
+    """Outlier smoothing settings (``parameters.preprocessing.smoothing``)."""
+
+    analysis_name: str
+    parameterization: str
+    analysis_config: dict[str, Any]
+    config_file: str = ""
+    config: dict[str, Any] | None = None
+
+    def __post_init__(self) -> None:
+        self.config = _top_level(self.config, self.config_file)
+        smoothing = self.analysis_config["parameters"]["preprocessing"]["smoothing"]
+        self.outlier_n_RMS = smoothing["outlier_n_RMS"]
+        self.interpolation_method = smoothing["interpolation_method"]
+        if self.interpolation_method not in ("linear", "cubic_spline"):
+            raise ValueError(f"Unrecognized interpolation method {self.interpolation_method}")
+        self.max_n_feature_outliers_to_interpolate = smoothing["max_n_feature_outliers_to_interpolate"]
+        self.output_dir = _run_dir(self.config, self.analysis_name, self.parameterization)

@@ -192,3 +192,101 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(device):
     dY, C = (torch.tensor(x, device=device).float() for x in _capacitance(4, 49))
     with pytest.raises(ValueError, match="no CUDA kernel"):
         tiny_mvn.block_mvn_loglike(dY, C)
+
+
+@pytest.fixture(scope="module")
+def card_analysis(tmp_path_factory):
+    """The jet group (5 PCs) of the synthetic production tables, with its
+    run-time configs; observables in memory (the card's machine has no h5py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bayesian_inference_tpu_torch.io.synthetic import THETA_MAX, THETA_MIN, make_production_tables
+    from bayesian_inference_tpu_torch.io.tables import initialize_observables_dict_from_tables
+    from bayesian_inference_tpu_torch.pipeline import configs
+
+    tmp = tmp_path_factory.mktemp("card_analysis")
+    make_production_tables(tmp / "tables")
+    group = {"force_retrain": True, "n_pc": 5, "max_n_components_to_calculate": 30,
+             "kernels": {"active": ["matern", "noise"], "matern": {"nu": 1.5, "length_scale_bounds_factor": [0.01, 100]},
+                         "noise": {"type": "white", "args": {"noise_level": 0.25, "noise_level_bounds": [1e-4, 1]}}},
+             "GPR": {"n_restarts": 4, "alpha": 1e-6}, "observable_list": ["jet__pt_"], "cross_validation": True,
+             "cross_validation_k": 2}
+    analysis = {"parameterizations": ["exponential"], "sqrts_list": [200, 2760, 5020], "centrality_range": [0, 10],
+                "parameterization": {"exponential": {"names": ["a", "b", "c", "d", "e", "f"],
+                                                     "min": THETA_MIN.tolist(), "max": THETA_MAX.tolist()}},
+                "validation_indices": [200, 230], "design_points_to_exclude": [17, 43],
+                "parameters": {"emulators": {"jet_group": group},
+                               "mcmc": {"n_walkers": 20, "n_burn_steps": 10, "n_sampling_steps": 40,
+                                        "n_logging_steps": 0}}}
+    config = {"output_dir": str(tmp / "output"), "observable_table_dir": str(tmp / "tables"),
+              "observable_config_dir": str(tmp / "tables"), "observables_filename": "observables.h5",
+              "analyses": {"card": analysis}}
+    kw = dict(analysis_name="card", parameterization="exponential", analysis_config=analysis, config=config)
+    observables = initialize_observables_dict_from_tables(str(tmp / "tables"), analysis, "exponential")
+    return configs.EmulationConfig.from_config_file(**kw), configs.MCMCConfig(**kw), observables
+
+
+def test_run_mcmc_resume_is_bit_exact_on_the_card(card_analysis, monkeypatch):
+    """On the card (f32, kernels K3 in the fit and K1 in the sampler): a run
+    interrupted during its third production chunk and run again equals the
+    uninterrupted run at the same cadence, bit for bit."""
+    from bayesian_inference_tpu_torch.mcmc import runner
+    from bayesian_inference_tpu_torch.models.emulator import fit_emulators
+
+    emu, mcmc, observables = card_analysis
+    device = torch.device("cuda", 0)
+    artifacts = fit_emulators(emu, n_opt_iters=20, device=device, observables=observables, write=False)
+    kw = dict(seed=2, device=device, emulation_results=artifacts, observables=observables, write=False,
+              checkpoint_every=10)
+    before = fused_mvn.KERNEL.launches
+    whole = runner.run_mcmc(mcmc, **kw)
+    assert fused_mvn.KERNEL.launches > before
+    inner, calls = runner.run_chunk, []
+
+    def interrupted(*args, **kwargs):
+        calls.append(1)
+        if len(calls) > 2 + 2:
+            raise KeyboardInterrupt("interrupted")
+        return inner(*args, **kwargs)
+
+    monkeypatch.setattr(runner, "run_chunk", interrupted)
+    with pytest.raises(KeyboardInterrupt):
+        runner.run_mcmc(mcmc, **kw)
+    monkeypatch.undo()
+    resumed = runner.run_mcmc(mcmc, **kw)
+    for key in ("chain", "log_prob", "acceptance_fraction", "split_rhat"):
+        np.testing.assert_array_equal(resumed[key], whole[key], err_msg=key)
+    assert np.isfinite(whole["log_prob"]).all()
+
+
+def test_cross_validation_on_the_card_launches_k3(card_analysis):
+    """Two-fold CV of the jet group on the card: every fold's fit goes through
+    K3, and the artifact is finite."""
+    from bayesian_inference_tpu_torch.models.cv import cross_validate_group
+
+    emu, _, observables = card_analysis
+    before = bc.KERNEL.launches
+    art = cross_validate_group(emu.emulation_groups_config["jet_group"], n_opt_iters=20, device="cuda",
+                               observables=observables)
+    assert bc.KERNEL.launches > before
+    assert art["predictions"].shape == art["truth"].shape and art["fold_indices"].shape[0] == 2
+    for key in ("predictions", "predictive_std", "normalized_residuals", "lml_per_fold"):
+        assert np.isfinite(art[key]).all(), key
+
+
+def test_device_trace_records_the_card_kernels(device, tmp_path):
+    """utils.profiling on the card: the trace holds the annotated region and
+    the hand-written kernel launched inside it."""
+    import json
+
+    from bayesian_inference_tpu_torch.utils import profiling
+
+    A = torch.tensor(_spd(8, 64), device=device).float()
+    with profiling.device_trace(str(tmp_path)):
+        with profiling.annotate("biq_card_region"):
+            bc.diag_chol_inv(A)
+            torch.cuda.synchronize()
+    events = json.loads((tmp_path / profiling.TRACE_FILE).read_text())["traceEvents"]
+    assert any(e.get("name") == "biq_card_region" for e in events)
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    assert any("diag_chol_inv_kernel" in name for name in kernels), kernels[:20]

@@ -304,14 +304,17 @@ def test_batched_and_device_closure_statistics_match_jax():
 
 
 def test_port_never_imports_jax():
-    """Importing every module of the port pulls in no JAX (the card's machine
-    has none)."""
+    """Importing every module of the port, the steer entry point and the
+    modules it runs among them, pulls in no JAX (the card's machine has none)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import bayesian_inference_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "[importlib.import_module(n) for n in names]\n"
         "assert len(names) > 20, names\n"
+        "for n in ('pipeline.steer', 'models.cv', 'preprocess', 'preprocess.outliers', 'utils.profiling',\n"
+        "          'utils.helpers'):\n"
+        "    assert p.__name__ + '.' + n in names, n\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax'))\n"
         "assert not bad, bad\n"
     )
