@@ -23,6 +23,12 @@ launch counts set to 0 just before it and read just after:
   closure batch cut during their third chunk and resumed, against
   uninterrupted runs, and production with and without chunking.
 
+Each kernel's line gives its time beside its bound (the larger of its FP32
+operations over 67 TFLOP/s and its bytes over 3.35 TB/s, the H100 SXM's
+published peaks) and the share of the bound it reaches. In block mode every
+likelihood evaluation is one launch of K1 for all width buckets; each path
+checks that its K1 launches equal its block-mode evaluations.
+
 One line per phase; the line before the last is the card's name and power
 limit as ``nvidia-smi`` reports them, the line before that the kernels' JSON
 record, and the last line ``{"ok": true, ...}``. Any failed check raises, so
@@ -37,6 +43,7 @@ in memory and the runners are called with ``write=False``. What it writes
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -109,6 +116,12 @@ TAU_RTOL, RHAT_ATOL = 1e-2, 1e-4
 LML_TOL_NAT = 0.1
 ACCEPTANCE_RANGE = (0.05, 0.9)
 
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
+# FP32 outside the tensor cores, and HBM3. A kernel's bound is the larger of
+# its operations over the first and its bytes (each input read once, each
+# output written once) over the second.
+PEAK_FP32_FLOPS, PEAK_HBM_BYTES = 67e12, 3.35e12
+
 
 def nvidia_smi_line() -> str:
     out = subprocess.run(
@@ -138,6 +151,50 @@ def time_pair(kernel_fn, plain_fn, reps: int) -> tuple[float, float]:
     k2 = cuda_ms(kernel_fn, reps)
     p2 = cuda_ms(plain_fn, reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def bound(flops: float, n_bytes: float) -> dict:
+    """The least time the card could take for ``flops`` operations moving
+    ``n_bytes`` bytes, and which of the two sets it."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, n_bytes / PEAK_HBM_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": n_bytes}
+
+
+def timed(ms: float, plain_ms: float, b: dict, library_ms: float | None = None, **extra) -> dict:
+    """A kernel's entry of the JSON record: its times beside its bound."""
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "share_of_bound": b["bound_ms"] / ms, "library_ms": library_ms, **extra}
+
+
+def bound_text(ms: float, b: dict) -> str:
+    return (f"bound {1e3 * b['bound_ms']:.2f} us ({b['bound_by']}: {b['flops'] / 1e6:.1f} MFLOP, "
+            f"{b['bytes'] / 1e6:.3f} MB), share of bound {b['bound_ms'] / ms:.2%}")
+
+
+@contextlib.contextmanager
+def count_evaluations():
+    """Count likelihood evaluations by mode while the block runs."""
+    from bayesian_inference_tpu_torch.mcmc.likelihood import EmulatorLikelihood
+
+    inner = EmulatorLikelihood.log_likelihood
+    calls = {"block": 0, "lowrank": 0}
+
+    def counted(self, theta):
+        calls[self.mode] += 1
+        return inner(self, theta)
+
+    EmulatorLikelihood.log_likelihood = counted
+    try:
+        yield calls
+    finally:
+        EmulatorLikelihood.log_likelihood = inner
+
+
+def check_k1_per_evaluation(launches: dict, calls: dict, path: str) -> None:
+    """K1 runs once per block-mode likelihood evaluation: one launch for all buckets."""
+    check(launches["fused_block_mvn"] == calls["block"],
+          f"{path}: {launches['fused_block_mvn']} K1 launches for {calls['block']} block-mode evaluations")
 
 
 def normwise_rel(a: torch.Tensor, ref: torch.Tensor) -> float:
@@ -207,14 +264,22 @@ def phase_k3(device, B: int = 41 * 51, reps: int = 20) -> dict:
     check(bool(torch.isnan(Lb[1]).any()) and bool(torch.isfinite(Lb[[0, 2, 3]]).all()),
           "K3: a non-SPD block must yield NaN without touching its neighbours")
 
+    eye = torch.eye(bc.NB, dtype=A.dtype, device=device).expand_as(A)
+
+    def library():  # the library route: cholesky_ex, then solve_triangular of I
+        return torch.linalg.solve_triangular(torch.linalg.cholesky_ex(A)[0], eye, upper=False)
+
     ms, plain_ms = time_pair(lambda: bc.diag_chol_inv(A), lambda: bc.diag_chol_inv_plain(A), reps)
+    library_ms = cuda_ms(library, reps)
+    n = bc.NB
+    b = bound(B * 2 * n**3 / 3, 4 * 3 * B * n * n)  # Cholesky + triangular inverse; read A, write L and L^-1
     print(f"K3 diag_chol_inv ({B}, {bc.NB}, {bc.NB}) f32: normwise rel err vs float64 plain: kernel "
           f"L {err['L_rel_f64_kernel']:.3g} (tol {K3_TOL_L}) / L^-1 {err['Linv_rel_f64_kernel']:.3g} "
           f"(tol {K3_TOL_LINV}), plain f32 L {err['L_rel_f64_plain']:.3g} / L^-1 {err['Linv_rel_f64_plain']:.3g}; "
           f"kernel vs plain f32: L {err['L_rel']:.3g} / L^-1 {err['Linv_rel']:.3g} (tol twice the above), "
-          f"max abs err {max_abs:.3g}; non-SPD -> NaN ok; kernel {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call",
-          flush=True)
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+          f"max abs err {max_abs:.3g}; non-SPD -> NaN ok; kernel {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call, "
+          f"library (cholesky_ex + solve_triangular) {library_ms:.4f} ms/call; {bound_text(ms, b)}", flush=True)
+    return {"max_abs_err": max_abs, **timed(ms, plain_ms, b, library_ms, shape=f"({B}, {n}, {n})")}
 
 
 def mvn_buckets(W: int, device, dtype, seed: int = 1, k: int = N_PCS, n_points: int = 0):
@@ -242,25 +307,41 @@ def mvn_buckets(W: int, device, dtype, seed: int = 1, k: int = N_PCS, n_points: 
     return [(t(u), t(dd), t(o)) for u, dd, o in zip(Ub, Db, d0b)], t(z), t(v)
 
 
+def k1_bound(buckets, z, v) -> dict:
+    """K1's bound at these operands: per walker and block, the assembly's
+    nb (nb + 1) / 2 * k FMA, the residual's nb * k, the Cholesky's nb^3 / 6 and
+    the forward solve's nb^2 / 2 (padded widths, as the buckets hold them);
+    every operand read once and the (W,) result written once."""
+    W, k = z.shape
+    fma = sum(n_obs * (nb * (nb + 1) / 2 * k + nb * k + nb**3 / 6 + nb**2 / 2)
+              for n_obs, nb, _ in (b[0].shape for b in buckets))
+    n_bytes = 4 * (sum(t.numel() for b in buckets for t in b) + z.numel() + v.numel() + W)
+    return bound(2 * W * fma, n_bytes)
+
+
 def phase_k1(device, W: int, reps: int = 50) -> dict:
-    """K1 (fused_block_mvn_loglike) against its plain version: f32 on the card,
-    with the plain version in float64 as the reference."""
+    """K1 (fused_block_mvn_loglike_buckets: every bucket in one launch) against
+    its plain version: f32 on the card, with the plain version in float64 as
+    the reference."""
     from bayesian_inference_tpu_torch.ops import fused_mvn
 
     buckets, z, v = mvn_buckets(W, device, torch.float32)
     buckets64, z64, v64 = mvn_buckets(W, device, torch.float64)
     check([b[0].shape[:2] for b in buckets] == [(40, 8), (96, 16), (8, 24)], "K1: unexpected bucket layout")
+    Us, Ds, d0s = zip(*buckets)
 
     def kernel():
-        return sum(fused_mvn.fused_block_mvn_loglike(U, D, d0, z, v) for U, D, d0 in buckets)
+        return fused_mvn.fused_block_mvn_loglike_buckets(Us, Ds, d0s, z, v)
 
     def plain():
-        return sum(fused_mvn.fused_block_mvn_plain(U, D, d0, z, v) for U, D, d0 in buckets)
+        return fused_mvn.fused_block_mvn_buckets_plain(Us, Ds, d0s, z, v)
 
+    before = fused_mvn.KERNEL.launches
     ll = kernel()
     torch.cuda.synchronize()
+    check(fused_mvn.KERNEL.launches == before + 1, "K1: the all-bucket call is not one launch")
     ll_plain = plain()
-    ll64 = sum(fused_mvn.fused_block_mvn_plain(U, D, d0, z64, v64) for U, D, d0 in buckets64)
+    ll64 = fused_mvn.fused_block_mvn_buckets_plain(*zip(*buckets64), z64, v64)
     scale = float(ll64.abs().max())
     rel = float((ll.double() - ll64).abs().max()) / scale
     rel_plain = float((ll_plain.double() - ll64).abs().max()) / scale
@@ -269,11 +350,12 @@ def phase_k1(device, W: int, reps: int = 50) -> dict:
     check(rel <= K1_TOL, f"K1: W={W} differs from the float64 plain path by {rel:.3g} > {K1_TOL}")
     check(bool(torch.equal(ll, kernel())), "K1: repeated launches are not bit-equal")
     ms, plain_ms = time_pair(kernel, plain, reps)
+    b = k1_bound(buckets, z, v)
     print(f"K1 fused_block_mvn W={W}, buckets nb 8/16/24 x 40/96/8 blocks, k=41, f32: max abs err vs plain f32 "
           f"{max_abs:.3g}; max err / max|ll| vs float64: kernel {rel:.3g}, plain f32 {rel_plain:.3g} "
           f"(tol {K1_TOL}); bit-equal on repeat; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-          f"per likelihood evaluation (3 bucket calls)", flush=True)
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+          f"per likelihood evaluation (one all-bucket call); {bound_text(ms, b)}", flush=True)
+    return {"max_abs_err": max_abs, **timed(ms, plain_ms, b, shape=f"W={W}, nb 8/16/24 x 40/96/8, k=41")}
 
 
 def phase_k1_points(device, P: int = 30, Wh: int = 50, reps: int = 20) -> dict:
@@ -286,34 +368,37 @@ def phase_k1_points(device, P: int = 30, Wh: int = 50, reps: int = 20) -> dict:
     buckets, z, v = mvn_buckets(W, device, torch.float32, seed=3, n_points=P)
     buckets64, z64, v64 = mvn_buckets(W, device, torch.float64, seed=3, n_points=P)
     check([b[2].shape for b in buckets] == [(P, 40, 8), (P, 96, 16), (P, 8, 24)], "K1 points: d0 layout")
+    Us, Ds, d0s = zip(*buckets)
 
     def kernel():
-        return sum(fused_mvn.fused_block_mvn_loglike(U, D, d0, z, v) for U, D, d0 in buckets)
+        return fused_mvn.fused_block_mvn_loglike_buckets(Us, Ds, d0s, z, v)
 
     def plain():
-        return sum(fused_mvn.fused_block_mvn_plain(U, D, d0, z, v) for U, D, d0 in buckets)
+        return fused_mvn.fused_block_mvn_buckets_plain(Us, Ds, d0s, z, v)
 
     ll = kernel()
     single = torch.cat([
-        sum(fused_mvn.fused_block_mvn_loglike(U, D, d0[p].contiguous(), z[p * Wh:(p + 1) * Wh].contiguous(),
-                                              v[p * Wh:(p + 1) * Wh].contiguous()) for U, D, d0 in buckets)
+        fused_mvn.fused_block_mvn_loglike_buckets(Us, Ds, tuple(d0[p].contiguous() for d0 in d0s),
+                                                  z[p * Wh:(p + 1) * Wh].contiguous(),
+                                                  v[p * Wh:(p + 1) * Wh].contiguous())
         for p in range(P)
     ])
     torch.cuda.synchronize()
     ll_plain = plain()
-    ll64 = sum(fused_mvn.fused_block_mvn_plain(U, D, d0, z64, v64) for U, D, d0 in buckets64)
+    ll64 = fused_mvn.fused_block_mvn_buckets_plain(*zip(*buckets64), z64, v64)
     rel = float((ll.double() - ll64).abs().max()) / float(ll64.abs().max())
     max_abs = float((ll - ll_plain).abs().max())
     ms, plain_ms = time_pair(kernel, plain, reps)
+    b = k1_bound(buckets, z, v)
     print(f"K1 fused_block_mvn per-point d0, P={P} x Wh={Wh} walkers, production buckets, f32: bit-equal to {P} "
           f"single-point launches: {bool(torch.equal(ll, single))}; max abs err vs plain f32 {max_abs:.3g}; "
           f"max err / max|ll| vs float64 {rel:.3g} (tol {K1_TOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-          f"per likelihood evaluation (3 bucket calls)", flush=True)
+          f"per likelihood evaluation (one all-bucket call); {bound_text(ms, b)}", flush=True)
     check(ll.shape == (W,) and bool(torch.isfinite(ll).all()), "K1 points: non-finite or misshapen result")
     check(bool(torch.equal(ll, single)), "K1 points: not bit-equal to single-point launches")
     check(rel <= K1_TOL, f"K1 points: differs from the float64 plain path by {rel:.3g} > {K1_TOL}")
     check(bool(torch.equal(ll, kernel())), "K1 points: repeated launches are not bit-equal")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": max_abs, **timed(ms, plain_ms, b, shape=f"P={P} x Wh={Wh}, nb 8/16/24 x 40/96/8, k=41")}
 
 
 def capacitance_operands(B: int, device, dtype, seed: int = 4, k: int = N_PCS, F: int = 1644):
@@ -365,17 +450,20 @@ def phase_k4(device, reps: int = 50) -> dict:
 
         ms, plain_ms = time_pair(lambda: tiny_mvn.block_mvn_loglike(r, M),
                                  lambda: tiny_mvn.block_mvn_plain(r, M), reps)
+        n = N_PCS
+        b = bound(B * (n**3 / 3 + n * n), 4 * B * (n * n + n + 1))  # Cholesky + solve; read M, r; write ll
         print(f"K4 block_mvn B={B} capacitance M = G + diag(1/v), k={N_PCS} (cond {float(cond.min()):.3g}.."
               f"{float(cond.max()):.3g}), f32: max per-instance err / (|quad|/2 + |half_logdet|) vs float64: "
               f"kernel {rel:.3g}, plain f32 {rel_plain:.3g}, Woodbury combination {wrel:.3g} (tol {K4_TOL}); "
               f"max abs err vs plain f32 {max_abs:.3g}; non-SPD -> NaN in that instance only: {nan_ok}; "
-              f"bit-equal on repeat: {repeat}; kernel {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call", flush=True)
+              f"bit-equal on repeat: {repeat}; kernel {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call; "
+              f"{bound_text(ms, b)}", flush=True)
         check(ll.shape == (B,) and bool(torch.isfinite(ll).all()), f"K4: non-finite or misshapen result at B={B}")
         check(rel <= K4_TOL and wrel <= K4_TOL, f"K4: B={B} differs from float64 by {max(rel, wrel):.3g} > {K4_TOL}")
         check(nan_ok, "K4: a non-SPD instance must yield NaN without touching its neighbours")
         check(repeat, "K4: repeated launches are not bit-equal")
         if B == 1500:
-            result = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+            result = {"max_abs_err": max_abs, **timed(ms, plain_ms, b, shape=f"B={B}, {n} x {n}")}
     return result
 
 
@@ -458,7 +546,7 @@ def phase_slice(device, kernels, n_restarts: int = N_RESTARTS, n_opt_iters: int 
     from bayesian_inference_tpu_torch.mcmc.runner import run_mcmc
     from bayesian_inference_tpu_torch.models.emulator import fit_emulators, posterior_from_artifact
     from bayesian_inference_tpu_torch.models.gp import _LOG_2PI
-    from bayesian_inference_tpu_torch.ops.fused_mvn import fused_block_mvn_plain
+    from bayesian_inference_tpu_torch.ops.fused_mvn import fused_block_mvn_buckets_plain
     from bayesian_inference_tpu_torch.ops.gram import train_gram
     from bayesian_inference_tpu_torch.pipeline.configs import EmulationConfig, MCMCConfig
 
@@ -479,13 +567,14 @@ def phase_slice(device, kernels, n_restarts: int = N_RESTARTS, n_opt_iters: int 
           flush=True)
 
     reset(kernels)
-    t = time.perf_counter()
-    artifacts = fit_emulators(emu, seed=0, n_opt_iters=n_opt_iters, device=device,
-                              observables=observables, write=False)
-    torch.cuda.synchronize()
-    t_fit = time.perf_counter() - t
-    out = run_mcmc(mcmc, seed=0, device=device, emulation_results=artifacts, observables=observables,
-                   write=False)
+    with count_evaluations() as evals:
+        t = time.perf_counter()
+        artifacts = fit_emulators(emu, seed=0, n_opt_iters=n_opt_iters, device=device,
+                                  observables=observables, write=False)
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter() - t
+        out = run_mcmc(mcmc, seed=0, device=device, emulation_results=artifacts, observables=observables,
+                       write=False)
     launches = counts(kernels)
 
     n_pc = sum(g["n_pc"] for g in PRODUCTION_GROUPS.values())
@@ -496,11 +585,13 @@ def phase_slice(device, kernels, n_restarts: int = N_RESTARTS, n_opt_iters: int 
           + f"; {n_pc} PCs x {n_restarts + 1} restarts x {n_opt_iters} iterations; {n_walkers} walkers x "
           f"({n_burn} burn-in + {n_steps}) steps, {n_steps / timings['production']:.1f} production steps/s",
           flush=True)
-    print(f"slice kernel launches: {launches}; production log-probs finite: {bool(np.isfinite(logp).all())}, "
+    print(f"slice kernel launches: {launches} for {evals['block']} block-mode likelihood evaluations; production "
+          f"log-probs finite: {bool(np.isfinite(logp).all())}, "
           f"shape {logp.shape}; mean acceptance {af:.4f} (must lie in {ACCEPTANCE_RANGE})", flush=True)
     check(n_pc == sum(a["n_pc"] for a in artifacts.values()), "slice: fitted PC count")
     check(launches["diag_chol_inv"] > 0 and launches["fused_block_mvn"] > 0,
           f"slice: a kernel of the path never launched: {launches}")
+    check_k1_per_evaluation(launches, evals, "slice")
     check(logp.shape == (n_steps, n_walkers) and bool(np.isfinite(logp).all()), "slice: non-finite log-probs")
     check(ACCEPTANCE_RANGE[0] < af < ACCEPTANCE_RANGE[1], f"slice: mean acceptance {af:.4f} out of range")
 
@@ -533,7 +624,7 @@ def phase_slice(device, kernels, n_restarts: int = N_RESTARTS, n_opt_iters: int 
     lp = likes[torch.float32].log_posterior(theta.float()).double()
     like64 = likes[torch.float64]
     z, v = like64.gp_eval(theta)
-    lp64 = sum(fused_block_mvn_plain(U, D, d0, z, v) for U, D, d0 in zip(like64.U, like64.D, like64.d0))
+    lp64 = fused_block_mvn_buckets_plain(like64.U, like64.D, like64.d0, z, v)
     lp_rel = float((lp - lp64).abs().max() / lp64.abs().max())
     print(f"slice check: fitted LML vs float64 recompute max |delta| {lml_delta:.4g} nat (tol {LML_TOL_NAT}); "
           f"log_posterior at "
@@ -574,8 +665,9 @@ def phase_lowrank(device, kernels, s: dict, n_check: int = 64) -> dict:
 
     config = mcmc_config(N_STEPS)
     reset(kernels)
-    out = run_mcmc(config, seed=0, device=device, emulation_results=s["artifacts"], observables=s["observables"],
-                   write=False, mode="lowrank")
+    with count_evaluations() as evals:
+        out = run_mcmc(config, seed=0, device=device, emulation_results=s["artifacts"],
+                       observables=s["observables"], write=False, mode="lowrank")
     launches = counts(kernels)
     logp = out["log_prob"]
     af = float(np.mean(out["acceptance_fraction"]))
@@ -586,6 +678,9 @@ def phase_lowrank(device, kernels, s: dict, n_check: int = 64) -> dict:
           f"log-probs finite: {bool(np.isfinite(logp).all())}; NaN log-probs {int(np.isnan(logp).sum())}; "
           f"mean acceptance {af:.4f}; split-R-hat max {float(out['split_rhat'].max()):.4f}", flush=True)
     check(launches["block_mvn"] > 0, f"lowrank: the tiny-MVN kernel never launched: {launches}")
+    check(launches["block_mvn"] == evals["lowrank"] and evals["block"] == 0,
+          f"lowrank: {launches} for {evals} likelihood evaluations")
+    check_k1_per_evaluation(launches, evals, "lowrank")
     check(logp.shape == (N_STEPS, N_WALKERS) and bool(np.isfinite(logp).all()), "lowrank: non-finite log-probs")
     check(ACCEPTANCE_RANGE[0] < af < ACCEPTANCE_RANGE[1], f"lowrank: mean acceptance {af:.4f} out of range")
     return launches
@@ -604,8 +699,9 @@ def phase_closure(device, kernels, s: dict, mode: str, n_check: int = 100) -> di
     indices = list(range(s["observables"]["Design_validation"].shape[0]))
     P = len(indices)
     reset(kernels)
-    out = run_closure_batch(config, indices, seed=0, device=device, mode=mode, emulation_results=s["artifacts"],
-                            observables=s["observables"], write=False)
+    with count_evaluations() as evals:
+        out = run_closure_batch(config, indices, seed=0, device=device, mode=mode,
+                                emulation_results=s["artifacts"], observables=s["observables"], write=False)
     launches = counts(kernels)
     timings = out[indices[0]]["timings"]
 
@@ -640,13 +736,16 @@ def phase_closure(device, kernels, s: dict, mode: str, n_check: int = 100) -> di
     rate = P * n_steps / timings["production"]
     print(f"closure {mode}: {P} points x {N_WALKERS} walkers x ({N_BURN} burn-in + {n_steps}) steps; phases (s): "
           + ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
-          + f"; {rate:.1f} production point-steps/s; kernel launches {launches}; log-probs finite: "
+          + f"; {rate:.1f} production point-steps/s; kernel launches {launches} for {evals[mode]} likelihood "
+          f"evaluations; log-probs finite: "
           f"{bool(np.isfinite(logp).all())}; acceptance per point {af.min():.4f}..{af.max():.4f}; device vs host "
           f"tau max rel err {tau_err:.3g} (tol {TAU_RTOL}), split-R-hat max abs err {rhat_err:.3g} "
           f"(tol {RHAT_ATOL}); batched vs per-point likelihood at {n_check} final positions per point: "
           f"max err / max|lp| {lp_err:.3g} (tol {CLOSURE_LOGP_TOL})", flush=True)
     kernel = "block_mvn" if mode == "lowrank" else "fused_block_mvn"
     check(launches[kernel] > 0, f"closure {mode}: kernel {kernel} never launched: {launches}")
+    check(launches[kernel] == evals[mode], f"closure {mode}: {launches} for {evals} likelihood evaluations")
+    check_k1_per_evaluation(launches, evals, f"closure {mode}")
     check(chain.shape == (n_steps, P, N_WALKERS, 6) and bool(np.isfinite(logp).all()),
           f"closure {mode}: non-finite or misshapen chains")
     check(bool(((ACCEPTANCE_RANGE[0] < af) & (af < ACCEPTANCE_RANGE[1])).all()),
@@ -730,10 +829,12 @@ def phase_steer(device, kernels) -> dict:
     config = steer_config(work_dir, WORK_DIR / "production_tables")
     analysis = config["analyses"][ANALYSIS]
     reset(kernels)
-    t = time.perf_counter()
-    result = SteerAnalysis(config=config, device=device, write=False).run_analysis()[f"{ANALYSIS}_{PARAMETERIZATION}"]
-    torch.cuda.synchronize()
-    t_steer = time.perf_counter() - t
+    with count_evaluations() as evals:
+        t = time.perf_counter()
+        result = SteerAnalysis(config=config, device=device, write=False).run_analysis()
+        result = result[f"{ANALYSIS}_{PARAMETERIZATION}"]
+        torch.cuda.synchronize()
+        t_steer = time.perf_counter() - t
     launches = counts(kernels)
 
     mcmc = result["mcmc"]
@@ -744,7 +845,8 @@ def phase_steer(device, kernels) -> dict:
     cv = result["cross_validation"]
     coverage = {name: float(np.mean(np.abs(a["normalized_residuals"]) < 1)) for name, a in cv.items()}
     print("steer stages (s, stage_timer): " + ", ".join(f"{k} {v:.3f}" for k, v in result["timings"].items())
-          + f"; whole run {t_steer:.3f} s; kernel launches {launches}", flush=True)
+          + f"; whole run {t_steer:.3f} s; kernel launches {launches} for {evals['block']} block-mode likelihood "
+          f"evaluations", flush=True)
     print(f"steer CV (k={STEER_CV_K}, every group): 1-sigma coverage of the z-scores "
           + ", ".join(f"{name} {c:.3f}" for name, c in coverage.items())
           + f" (want ~0.68); z-scores finite: {all(np.isfinite(a['normalized_residuals']).all() for a in cv.values())}",
@@ -755,6 +857,7 @@ def phase_steer(device, kernels) -> dict:
           f"{N_STEPS // 4}, acceptance per point {af_points.min():.4f}..{af_points.max():.4f}", flush=True)
     check(launches["diag_chol_inv"] > 0 and launches["fused_block_mvn"] > 0,
           f"steer: a kernel of the path never launched: {launches}")
+    check_k1_per_evaluation(launches, evals, "steer")
     check(sorted(result["timings"]) == sorted(["initialize", "preprocess", "fit_emulators", "cross_validation",
                                                 "mcmc", "closure"]), f"steer: stages run {sorted(result['timings'])}")
     check(sorted(cv) == sorted(PRODUCTION_GROUPS), f"steer: CV ran for {sorted(cv)}")
@@ -857,8 +960,8 @@ def main() -> int:
 
     k3 = phase_k3(device)
     k1 = phase_k1(device, W=N_WALKERS // 2)
-    phase_k1(device, W=N_WALKERS)  # the half-ensemble width of a 200-walker run
-    phase_k1_points(device)
+    k1_wide = phase_k1(device, W=N_WALKERS)  # the half-ensemble width of a 200-walker run
+    k1_points = phase_k1_points(device)
     k4 = phase_k4(device)
     path_launches = []
     launches, reuse = phase_slice(device, kernels)
@@ -879,7 +982,7 @@ def main() -> int:
         {"name": "fused_block_mvn", "route": "cuda",
          "source": "src/bayesian_inference_tpu_torch/csrc/fused_block_mvn.cu",
          "replaces": "src/bayesian_inference_tpu/ops/pallas_mvn.py:189",
-         "launches": total["fused_block_mvn"], **k1},
+         "launches": total["fused_block_mvn"], **k1, "other_shapes": [k1_wide, k1_points]},
         {"name": "block_mvn", "route": "cuda",
          "source": "src/bayesian_inference_tpu_torch/csrc/tiny_mvn.cu",
          "replaces": "src/bayesian_inference_tpu/ops/pallas_mvn.py:90",

@@ -1,100 +1,421 @@
-// Fused block-MVN log-likelihood of the MCMC likelihood's observable blocks.
+// Fused block-MVN log-likelihood of the MCMC likelihood's observable blocks,
+// every width bucket in one launch.
 //
 // Replaces bayesian_inference_tpu/ops/pallas_mvn.py::_fused_kernel_packed (and
 // computes the same function as its W > 64 sibling _fused_kernel). For every
-// walker w and every observable block o of one width bucket:
+// walker w and every observable block o of every width bucket:
 //
 //   b = d0[p(w), o] + U[o] z[w]                 (nb)
 //   C = D[o] + U[o] diag(v[w]) U[o]^T           (nb x nb)
 //   ll[o, w] = -1/2 |L^{-1} b|^2 - sum(log diag L),   C = L L^T
 //
-// and out[w] = sum_o ll[o, w]. No (W, n_obs, nb, nb) covariance ever reaches
-// device memory: a thread block stages one observable block's U and D in
-// shared memory once, and each of its warps owns one walker, assembling b and
-// the lower triangle of C in its own shared-memory tile (at most 48 x 49
-// floats) and factorising it with the shared column sweep of tiny_chol.cuh.
-// Padded rows of a bucket carry D = I, U = 0, d0 = 0 and contribute 0.
+// and out[w] = sum over buckets, then over their blocks, of ll[o, w]. Padded
+// rows of a bucket carry D = I, U = 0, d0 = 0 and contribute 0. The residual
+// offsets d0 may differ per point of a batched closure run: each bucket's d0
+// is then (P, n_obs, nb), walkers are point-major with Wh per point, and
+// walker w reads row p(w) = w / Wh (P = 1, Wh = W: one analysis).
 //
-// The residual offsets d0 may differ per point of a batched closure run: d0
-// is (P, n_obs, nb), walkers are laid out point-major with Wh per point, and
-// walker w reads row p(w) = w / Wh. Walkers of two points can share a thread
-// block, so each warp reads its own d0 row from device memory. P = 1 (Wh = W)
-// is the single-analysis likelihood.
+// What bounds it: plain FP32 FMA. Per walker at the production buckets
+// (nb 8/16/24 x 40/96/8 blocks, k = 41) the assembly takes 692,736 FMA, the
+// residual 83,968, the Cholesky 87,381 and the solve 15,872: 1.76 MFLOP
+// against ~10 KB of operands per walker, so the least time on an H100 SXM
+// (67 TFLOP/s FP32 without tensor cores) is 1.3 us at W = 50 and 39 us at
+// W = 1,500. Single-pass TF32 would break the port's precision contract.
 //
-// What bounds it: the assembly's ~nb^2 k / 2 fused multiply-adds per
-// (walker, block) and the factorisation's serial column steps (a warp barrier
-// each). Plain fp32 FMA throughout, in a fixed order.
-//
-// The sum over blocks is deterministic, without atomics: the first kernel
-// writes a (n_obs, W) buffer and a second kernel sums it per walker in block
-// order, so repeated runs give bit-equal log-probabilities, and a walker's
-// value does not depend on which other walkers share its launch.
+// The design follows from that: FMAs, not loads or barriers, must set the
+// pace, so one thread owns one (walker, block) pair, as the TPU kernel put
+// walkers on its lanes. Every lane of a thread block has the same nb, so
+// nothing diverges and the factorisation needs no barrier at all.
+// - A thread block takes one observable block and a tile of walkers. It
+//   stages the block's U once, transposed to [q][row] so that a column of U
+//   is a few broadcast 16-byte shared loads (every lane reads the same
+//   address), its D, and the tile's z and v as [q][walker] (odd pitch:
+//   conflict-free), all with cp.async so that every copy is in flight at
+//   once (copies one round trip at a time took 5-12 us per block).
+// - nb <= 16 (padded to 8 or 16 with identity rows, which leave every real
+//   entry and both sums bit-unchanged): the thread keeps its whole lower
+//   triangle and residual in registers. The assembly streams over q: per q it
+//   loads one column of U and v[w, q], z[w, q], then runs nb (nb + 1) / 2 + nb
+//   independent FMAs. The Cholesky, forward solve and log-determinant run on
+//   the registers fully unrolled. Walker tile 64.
+// - 16 < nb <= 48: the triangle does not fit in registers. It is assembled
+//   in 8 x 8 register tiles (the same arithmetic per entry) and written to
+//   shared memory laid out [entry][walker], stride 1 across lanes. A blocked
+//   right-looking Cholesky factorises it on 8 x 8 register tiles (one shared
+//   load or store per 8 FMA, independent chains), with the forward solve and
+//   the log-determinant. Walker tile 32, so that the shared memory of one
+//   launch stays small enough for several blocks per SM; the block's two
+//   warps share the assembly's tiles (one barrier), then one factorises.
+// - The launch covers every bucket: a small table maps each thread block to
+//   its bucket, block and walker tile (heaviest buckets first). A second
+//   kernel sums each walker's (bucket, block) terms in a fixed order: no
+//   atomics, repeated launches are bit-equal, and a walker's value does not
+//   depend on which walkers share its launch.
+// A pivot that is not positive gives NaN in that walker's block term, and in
+// nothing else.
 
 #include <cuda_runtime.h>
 
-#include "tiny_chol.cuh"
-
 namespace {
 
-constexpr int kWarps = 4;  // walkers per thread block
+constexpr int kThreads = 64;      // threads per block, the walker tile for nb <= 16
+constexpr int kTileShared = 32;   // walker tile for nb > 16
 constexpr int kMaxNb = 48;
+constexpr int kMaxK = 128;
+constexpr int kMaxBuckets = 8;
 
-__global__ void __launch_bounds__(kWarps * 32)
-fused_block_mvn_kernel(const float* __restrict__ U, const float* __restrict__ D,
-                       const float* __restrict__ d0, const float* __restrict__ z,
-                       const float* __restrict__ v, float* __restrict__ ll_blk,
-                       int nb, int k, int W, int Wh) {
-  extern __shared__ float smem[];
-  const int kp = k | 1;   // odd pitches keep strided shared reads conflict-light
-  const int cp = nb | 1;
-  float* U_s = smem;                 // nb x kp
-  float* D_s = U_s + nb * kp;        // nb x cp
-  float* warp_tiles = D_s + nb * cp;
-  const int per_warp = 2 * k + nb + nb * cp;
+struct Bucket {
+  const float* U;    // (n_obs, nb, k)
+  const float* D;    // (n_obs, nb, nb)
+  const float* d0;   // (P, n_obs, nb)
+  int n_obs, nb;
+  int obs_offset;    // first row of this bucket's blocks in ll_blk (bucket order)
+  int block_start;   // first thread block of this bucket (launch order)
+  int tiles;         // walker tiles per observable block
+};
 
-  const int o = blockIdx.x;
-  const int n_obs = gridDim.x;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int w = blockIdx.y * kWarps + warp;
+struct Buckets {
+  Bucket b[kMaxBuckets];
+  int n;
+};
 
-  const float* Uo = U + static_cast<size_t>(o) * nb * k;
-  const float* Do = D + static_cast<size_t>(o) * nb * nb;
-  for (int e = tid; e < nb * k; e += kWarps * 32) U_s[(e / k) * kp + e % k] = Uo[e];
-  for (int e = tid; e < nb * nb; e += kWarps * 32) D_s[(e / nb) * cp + e % nb] = Do[e];
+__host__ __device__ inline int padded(int nb) { return (nb + 7) & ~7; }
+__host__ __device__ inline int walker_tile(int nb) { return nb <= 16 ? kThreads : kTileShared; }
+__host__ __device__ inline int tri(int n) { return n * (n + 1) / 2; }
 
-  float* zs = warp_tiles + warp * per_warp;
-  float* vs = zs + k;
-  float* bs = vs + k;
-  float* C = bs + nb;
-  if (w < W) {
-    for (int e = lane; e < k; e += 32) {
-      zs[e] = z[static_cast<size_t>(w) * k + e];
-      vs[e] = v[static_cast<size_t>(w) * k + e];
+// Shared floats one thread block of a bucket of width nb uses.
+__host__ inline size_t shared_floats(int nb, int k) {
+  const int tw = walker_tile(nb);
+  size_t n = static_cast<size_t>(k) * padded(nb) + 2 * static_cast<size_t>(k) * (tw + 1) + nb * nb;
+  if (nb > 16) n += static_cast<size_t>(tri(nb) + nb) * tw;
+  return n;
+}
+
+__device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
+
+// A 4-byte copy from device to shared memory that does not hold the thread
+// (cp.async); copy_async_wait waits for all of the thread's copies.
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src));
+}
+
+__device__ __forceinline__ void copy_async_wait() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// Entry (f, g), g <= f, of a thread's packed lower triangle in shared memory
+// ([entry][walker], pitch tw); rows at or past nb read as the identity.
+__device__ __forceinline__ float entry(const float* C_s, int f, int g, int nb, int tw, int t) {
+  return f < nb ? C_s[(tri(f) + g) * tw + t] : (f == g ? 1.f : 0.f);
+}
+
+// nb <= NB (8 or 16): the pair's triangle and residual in registers. Do is the
+// block's D in shared memory.
+template <int NB>
+__device__ __forceinline__ void pair_in_registers(const float* __restrict__ Do, const float* __restrict__ d0w,
+                                                  const float* U_s, const float* zT, const float* vT, int tp,
+                                                  int t, int nb, int k, float& quad, float& half_logdet) {
+  float C[NB * (NB + 1) / 2];
+  float b[NB];
+#pragma unroll
+  for (int f = 0; f < NB; ++f) {
+    b[f] = f < nb ? d0w[f] : 0.f;
+#pragma unroll
+    for (int g = 0; g <= f; ++g) C[tri(f) + g] = f < nb ? Do[f * nb + g] : (f == g ? 1.f : 0.f);
+  }
+
+#pragma unroll 1
+  for (int q = 0; q < k; ++q) {
+    const float zq = zT[q * tp + t];
+    const float vq = vT[q * tp + t];
+    float u[NB];
+    const float4* col = reinterpret_cast<const float4*>(U_s + q * NB);
+#pragma unroll
+    for (int i = 0; i < NB / 4; ++i) {
+      const float4 x = col[i];
+      u[4 * i] = x.x;
+      u[4 * i + 1] = x.y;
+      u[4 * i + 2] = x.z;
+      u[4 * i + 3] = x.w;
+    }
+#pragma unroll
+    for (int f = 0; f < NB; ++f) {
+      b[f] = fmaf(u[f], zq, b[f]);
+      const float a = u[f] * vq;
+#pragma unroll
+      for (int g = 0; g <= f; ++g) C[tri(f) + g] = fmaf(a, u[g], C[tri(f) + g]);
     }
   }
+
+  // Right-looking Cholesky fused with the forward solve and the log-det.
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    const float pivot = C[tri(j) + j];
+    const float d = pivot > 0.f ? sqrtf(pivot) : nan_f();
+    const float inv = 1.f / d;
+    const float yj = b[j] * inv;
+    quad = fmaf(yj, yj, quad);
+    half_logdet += logf(d);
+#pragma unroll
+    for (int i = j + 1; i < NB; ++i) {
+      const float l = C[tri(i) + j] * inv;
+      C[tri(i) + j] = l;
+      b[i] = fmaf(-l, yj, b[i]);
+    }
+#pragma unroll
+    for (int i = j + 1; i < NB; ++i) {
+#pragma unroll
+      for (int c = j + 1; c <= i; ++c) C[tri(i) + c] = fmaf(-C[tri(i) + j], C[tri(c) + j], C[tri(i) + c]);
+    }
+  }
+}
+
+// 16 < nb <= 48: the pair's triangle and residual into shared memory,
+// [entry][walker] with pitch tw. The 8 x 8 tiles are dealt out over ``parts``
+// threads of the same walker; this one computes those numbered ``part``.
+__device__ __forceinline__ void assemble_in_shared(const float* __restrict__ Do, const float* __restrict__ d0w,
+                                                   const float* U_s, const float* zT, const float* vT, int tp,
+                                                   float* C_s, float* b_s, int tw, int t, int nb, int k,
+                                                   int part, int parts) {
+  const int nbp = padded(nb);
+  const int tiles = nbp / 8;
+  int n = 0;
+#pragma unroll 1
+  for (int F = 0; F < tiles; ++F) {
+#pragma unroll 1
+    for (int G = 0; G <= F; ++G) {
+      if (n++ % parts != part) continue;
+      const bool diag = F == G;
+      float acc[8][8];
+      float r[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int f = 8 * F + i;
+        r[i] = diag && f < nb ? d0w[f] : 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int g = 8 * G + j;
+          acc[i][j] = f < nb && g <= f ? Do[f * nb + g] : 0.f;
+        }
+      }
+#pragma unroll 1
+      for (int q = 0; q < k; ++q) {
+        const float vq = vT[q * tp + t];
+        const float4* rows = reinterpret_cast<const float4*>(U_s + q * nbp + 8 * F);
+        const float4* cols = reinterpret_cast<const float4*>(U_s + q * nbp + 8 * G);
+        const float4 f0 = rows[0], f1 = rows[1], g0 = cols[0], g1 = cols[1];
+        const float uf[8] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w};
+        const float ug[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+        if (diag) {
+          const float zq = zT[q * tp + t];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) r[i] = fmaf(uf[i], zq, r[i]);
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float a = uf[i] * vq;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a, ug[j], acc[i][j]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int f = 8 * F + i;
+        if (f >= nb) break;
+        if (diag) b_s[f * tw + t] = r[i];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int g = 8 * G + j;
+          if (g <= f) C_s[(tri(f) + g) * tw + t] = acc[i][j];
+        }
+      }
+    }
+  }
+}
+
+// Blocked right-looking Cholesky of the triangle assemble_in_shared left, over
+// 8 x 8 tiles, each step on register tiles (rows >= nb read as the identity
+// and never stored): factor the diagonal tile with the forward solve and the
+// log-det, solve the tiles below it and update their residual rows, then
+// update the trailing tiles.
+__device__ __forceinline__ void factor_in_shared(float* C_s, float* b_s, int tw, int t, int nb,
+                                                 float& quad, float& half_logdet) {
+  const int tiles = padded(nb) / 8;
+#pragma unroll 1
+  for (int J = 0; J < tiles; ++J) {
+    float A[8][8];
+    float y[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int f = 8 * J + i;
+      y[i] = f < nb ? b_s[f * tw + t] : 0.f;
+#pragma unroll
+      for (int j = 0; j <= i; ++j) A[i][j] = entry(C_s, f, 8 * J + j, nb, tw, t);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float pivot = A[j][j];
+      const float d = pivot > 0.f ? sqrtf(pivot) : nan_f();
+      const float inv = 1.f / d;
+      const float yj = y[j] * inv;
+      y[j] = yj;
+      A[j][j] = inv;  // the panel solves below scale by it
+      quad = fmaf(yj, yj, quad);
+      half_logdet += logf(d);
+#pragma unroll
+      for (int i = j + 1; i < 8; ++i) {
+        const float l = A[i][j] * inv;
+        A[i][j] = l;
+        y[i] = fmaf(-l, yj, y[i]);
+      }
+#pragma unroll
+      for (int i = j + 1; i < 8; ++i) {
+#pragma unroll
+        for (int c = j + 1; c <= i; ++c) A[i][c] = fmaf(-A[i][j], A[c][j], A[i][c]);
+      }
+    }
+
+#pragma unroll 1
+    for (int I = J + 1; I < tiles; ++I) {
+      float X[8][8];
+      float r[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int f = 8 * I + i;
+        r[i] = f < nb ? b_s[f * tw + t] : 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) X[i][j] = entry(C_s, f, 8 * J + j, nb, tw, t);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          X[i][j] *= A[j][j];
+          r[i] = fmaf(-X[i][j], y[j], r[i]);
+        }
+#pragma unroll
+        for (int c = j + 1; c < 8; ++c) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) X[i][c] = fmaf(-X[i][j], A[c][j], X[i][c]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int f = 8 * I + i;
+        if (f >= nb) break;
+        b_s[f * tw + t] = r[i];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) C_s[(tri(f) + 8 * J + j) * tw + t] = X[i][j];
+      }
+    }
+
+#pragma unroll 1
+    for (int I = J + 1; I < tiles; ++I) {
+      float P[8][8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) P[i][j] = entry(C_s, 8 * I + i, 8 * J + j, nb, tw, t);
+      }
+#pragma unroll 1
+      for (int K = J + 1; K <= I; ++K) {
+        float Q[8][8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) Q[i][j] = entry(C_s, 8 * K + i, 8 * J + j, nb, tw, t);
+        }
+        // One row of the tile at a time: 8 independent sums, each over j in order.
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int f = 8 * I + i;
+          if (f >= nb) break;
+          float acc[8];
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            const int g = 8 * K + c;
+            acc[c] = g <= f ? C_s[(tri(f) + g) * tw + t] : 0.f;
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int c = 0; c < 8; ++c) acc[c] = fmaf(-P[i][j], Q[c][j], acc[c]);
+          }
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            const int g = 8 * K + c;
+            if (g <= f) C_s[(tri(f) + g) * tw + t] = acc[c];
+          }
+        }
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+fused_block_mvn_buckets_kernel(const Buckets buckets, const float* __restrict__ z, const float* __restrict__ v,
+                               float* __restrict__ ll_blk, int k, int W, int Wh) {
+  extern __shared__ __align__(16) float smem[];
+  int bi = 0;
+  while (bi + 1 < buckets.n && static_cast<int>(blockIdx.x) >= buckets.b[bi + 1].block_start) ++bi;
+  const Bucket bk = buckets.b[bi];
+  const int local = blockIdx.x - bk.block_start;
+  const int o = local / bk.tiles;
+  const int nb = bk.nb, nbp = padded(nb);
+  const int tw = walker_tile(nb), tp = tw + 1;
+  const int w0 = (local % bk.tiles) * tw;
+
+  float* U_s = smem;             // k x nbp, [q][row], rows >= nb zero
+  float* zT = U_s + k * nbp;     // k x tp, [q][walker]
+  float* vT = zT + k * tp;
+  float* D_s = vT + k * tp;      // nb x nb
+  float* C_s = D_s + nb * nb;    // nb > 16 only: tri(nb) x tw
+  float* b_s = C_s + tri(nb) * tw;
+
+  // Staging: every copy of the block in flight at once (cp.async), since one
+  // round trip to device memory at a time costs microseconds under load.
+  const float* Uo = bk.U + static_cast<size_t>(o) * nb * k;
+  const float* Do = bk.D + static_cast<size_t>(o) * nb * nb;
+  for (int e = threadIdx.x; e < nb * k; e += kThreads) copy_async(U_s + (e % k) * nbp + e / k, Uo + e);
+  for (int e = threadIdx.x; e < nb * nb; e += kThreads) copy_async(D_s + e, Do + e);
+  for (int e = threadIdx.x; e < k * (nbp - nb); e += kThreads) {
+    U_s[(e / (nbp - nb)) * nbp + nb + e % (nbp - nb)] = 0.f;
+  }
+  const float* zt = z + static_cast<size_t>(w0) * k;
+  const float* vt = v + static_cast<size_t>(w0) * k;
+  const int n_in = (W - w0 < tw ? W - w0 : tw) * k;  // the tile's walkers past W stage zeros
+  for (int e = threadIdx.x; e < tw * k; e += kThreads) {
+    float* zd = zT + (e % k) * tp + e / k;
+    float* vd = vT + (e % k) * tp + e / k;
+    if (e < n_in) {
+      copy_async(zd, zt + e);
+      copy_async(vd, vt + e);
+    } else {
+      *zd = 0.f;
+      *vd = 0.f;
+    }
+  }
+  copy_async_wait();
   __syncthreads();
-  if (w >= W) return;  // no block-wide barrier below this point
 
-  // Assembly: residual and the lower triangle of the covariance.
-  const float* d0w = d0 + (static_cast<size_t>(w / Wh) * n_obs + o) * nb;
-  for (int f = lane; f < nb; f += 32) {
-    float acc = d0w[f];
-    for (int q = 0; q < k; ++q) acc = fmaf(U_s[f * kp + q], zs[q], acc);
-    bs[f] = acc;
+  const int t = threadIdx.x % tw;    // the walker's lane in the tile
+  const int part = threadIdx.x / tw;  // nb > 16: which share of the assembly
+  const int w = w0 + t;
+  const float* d0w = bk.d0 + (static_cast<size_t>(w / Wh) * bk.n_obs + o) * nb;
+  float quad = 0.f, half_logdet = 0.f;
+  if (nb <= 16) {
+    if (w >= W) return;  // no block-wide barrier below this point
+    if (nb <= 8) {
+      pair_in_registers<8>(D_s, d0w, U_s, zT, vT, tp, t, nb, k, quad, half_logdet);
+    } else {
+      pair_in_registers<16>(D_s, d0w, U_s, zT, vT, tp, t, nb, k, quad, half_logdet);
+    }
+  } else {
+    if (w < W) assemble_in_shared(D_s, d0w, U_s, zT, vT, tp, C_s, b_s, tw, t, nb, k, part, kThreads / tw);
+    __syncthreads();
+    if (part != 0 || w >= W) return;
+    factor_in_shared(C_s, b_s, tw, t, nb, quad, half_logdet);
   }
-  for (int e = lane; e < nb * nb; e += 32) {
-    const int f = e / nb, g = e % nb;
-    if (g > f) continue;
-    float acc = D_s[f * cp + g];
-    for (int q = 0; q < k; ++q) acc = fmaf(U_s[f * kp + q] * vs[q], U_s[g * kp + q], acc);
-    C[f * cp + g] = acc;
-  }
-  __syncwarp();
-
-  float quad, half_logdet;
-  tiny_chol_sweep(C, bs, nb, cp, lane, quad, half_logdet);
-  if (lane == 0) ll_blk[static_cast<size_t>(o) * W + w] = -0.5f * quad - half_logdet;
+  ll_blk[static_cast<size_t>(bk.obs_offset + o) * W + w] = -0.5f * quad - half_logdet;
 }
 
 __global__ void sum_over_blocks_kernel(const float* __restrict__ ll_blk, float* __restrict__ out,
@@ -108,27 +429,54 @@ __global__ void sum_over_blocks_kernel(const float* __restrict__ ll_blk, float* 
 
 }  // namespace
 
-// W walkers in total, Wh per point (W a multiple of Wh); d0 holds W / Wh
-// (n_obs, nb) offset tables, point-major.
-extern "C" int fused_block_mvn_f32(const float* U, const float* D, const float* d0,
-                                   const float* z, const float* v, float* ll_blk, float* out,
-                                   int n_obs, int nb, int k, int W, int Wh, void* stream) {
-  if (nb < 1 || nb > kMaxNb || k < 1 || n_obs < 1 || W < 1 || Wh < 1 || W % Wh != 0) {
+// n_buckets width buckets, bucket i with pointers U[i], D[i], d0[i] and
+// n_obs[i] blocks of width nb[i]; all share z and v (W, k). W walkers in
+// total, Wh per point (W a multiple of Wh): every d0[i] holds W / Wh
+// (n_obs[i], nb[i]) offset tables, point-major. ll_blk is (sum n_obs, W)
+// scratch, out is (W,).
+extern "C" int fused_block_mvn_buckets_f32(int n_buckets, const void* const* U, const void* const* D,
+                                           const void* const* d0, const int* n_obs, const int* nb,
+                                           const float* z, const float* v, float* ll_blk, float* out,
+                                           int k, int W, int Wh, void* stream) {
+  if (n_buckets < 1 || n_buckets > kMaxBuckets || k < 1 || k > kMaxK || W < 1 || Wh < 1 || W % Wh != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int kp = k | 1, cp = nb | 1;
-  const size_t smem = sizeof(float) * (nb * kp + nb * cp + kWarps * (2 * k + nb + nb * cp));
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_block_mvn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  int offsets[kMaxBuckets];
+  int total_obs = 0;
+  size_t smem = 0;
+  for (int i = 0; i < n_buckets; ++i) {
+    if (nb[i] < 1 || nb[i] > kMaxNb || n_obs[i] < 1) return static_cast<int>(cudaErrorInvalidValue);
+    offsets[i] = total_obs;
+    total_obs += n_obs[i];
+    const size_t need = sizeof(float) * shared_floats(nb[i], k);
+    if (need > smem) smem = need;
+  }
+  // Launch order: the widest (slowest) buckets first, so they do not trail.
+  Buckets table{};
+  table.n = n_buckets;
+  long long blocks = 0;
+  for (int j = 0; j < n_buckets; ++j) {
+    const int i = n_buckets - 1 - j;
+    const int tiles = (W + walker_tile(nb[i]) - 1) / walker_tile(nb[i]);
+    table.b[j] = Bucket{static_cast<const float*>(U[i]), static_cast<const float*>(D[i]),
+                        static_cast<const float*>(d0[i]), n_obs[i], nb[i], offsets[i],
+                        static_cast<int>(blocks), tiles};
+    blocks += static_cast<long long>(n_obs[i]) * tiles;
+  }
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  static size_t smem_allowed = 48 * 1024;
+  if (smem > smem_allowed) {
+    cudaError_t err = cudaFuncSetAttribute(fused_block_mvn_buckets_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
+    smem_allowed = smem;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(n_obs, (W + kWarps - 1) / kWarps);
-  fused_block_mvn_kernel<<<grid, kWarps * 32, smem, s>>>(U, D, d0, z, v, ll_blk, nb, k, W, Wh);
+  fused_block_mvn_buckets_kernel<<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(table, z, v, ll_blk, k, W,
+                                                                                       Wh);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  sum_over_blocks_kernel<<<(W + 127) / 128, 128, 0, s>>>(ll_blk, out, n_obs, W);
+  sum_over_blocks_kernel<<<(W + 127) / 128, 128, 0, s>>>(ll_blk, out, total_obs, W);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,11 +2,10 @@
 // right-looking Cholesky factorisation fused with the forward substitution of
 // a right-hand side and the log-determinant.
 //
-// Shared by the fused block-MVN kernel (fused_block_mvn.cu, K1) and the
-// tiny-MVN kernel (tiny_mvn.cu, K4). On entry C holds the lower triangle of
-// the n x n matrix with row pitch cp (odd, so the column reads of the lanes
-// fall in different banks) and b holds the right-hand side; both are
-// overwritten. Lanes own rows; every column step is a warp barrier.
+// Used by the tiny-MVN kernel (tiny_mvn.cu, K4). On entry C holds the lower
+// triangle of the n x n matrix with row pitch cp (odd, so the column reads of
+// the lanes fall in different banks) and b holds the right-hand side; both
+// are overwritten. Lanes own rows; every column step is a warp barrier.
 //
 // On return, on every lane: quad = |L^{-1} b|^2 and half_logdet = sum log
 // diag L, with C = L L^T. A pivot that is not positive gives NaN in both, and

@@ -15,8 +15,8 @@
 // The TPU kernel put the batch on the 128 lanes and the (nb, nb, batch)
 // matrix in VMEM. Here one warp owns one instance: it copies the lower
 // triangle of C[i] and dY[i] into its own shared-memory tile (odd row pitch)
-// and runs the column sweep of tiny_chol.cuh, the one the fused block-MVN
-// kernel runs. A pivot that is not positive gives NaN in that instance only.
+// and runs the column sweep of tiny_chol.cuh. A pivot that is not positive
+// gives NaN in that instance only.
 //
 // What bounds it: the serial column steps of the sweep (a warp barrier each,
 // ~nb^3/6 fused multiply-adds per instance spread over the lanes); reading C

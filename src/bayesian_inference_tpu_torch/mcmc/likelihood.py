@@ -5,8 +5,8 @@ Port of ``bayesian_inference_tpu.mcmc.likelihood``. Two likelihood structures:
 * ``block`` (default, the reference's model): the merged emulator covariance
   is block-diagonal per observable, so the likelihood is a sum of small
   independent MVN terms. Observable blocks are grouped into size buckets
-  (padded width a multiple of 8) and each bucket is one launch of the fused
-  block-MVN kernel (ops/fused_mvn.py).
+  (padded width a multiple of 8); one call of the fused block-MVN kernel
+  (ops/fused_mvn.py) takes every bucket, one launch per evaluation.
 * ``lowrank``: the full cross-observable covariance D + U diag(v) U^T through
   the Woodbury identity (ops/mvn.py), one launch of the tiny-MVN kernel
   (ops/tiny_mvn.py) on the k x k capacitance matrices per evaluation.
@@ -19,7 +19,7 @@ A batched closure run (one pseudodata vector per validation point) differs
 only in the residual offset d0. ``with_d0`` swaps it once per run, for one
 point or a batch of P; the log-posterior then takes walkers of shape
 (P, Wh, d) and returns (P, Wh), all points in one GP predict and one kernel
-launch per bucket (block) or one in total (lowrank).
+launch (either mode).
 """
 
 from __future__ import annotations
@@ -33,15 +33,16 @@ import torch
 
 from bayesian_inference_tpu_torch.models import emulator as emulator_mod
 from bayesian_inference_tpu_torch.models.gp import GPPosterior, predict_all_shared
-from bayesian_inference_tpu_torch.ops.fused_mvn import fused_block_mvn_loglike
+from bayesian_inference_tpu_torch.ops.fused_mvn import fused_block_mvn_loglike_buckets
 from bayesian_inference_tpu_torch.ops.gram import KernelConfig
 from bayesian_inference_tpu_torch.ops.mvn import WoodburyNormal, build_woodbury, woodbury_loglike
 
 MODES = ("block", "lowrank")
 
-# Cost of one extra kernel launch per likelihood evaluation, in the same
-# count * nb^2 units as the per-block factorisation work: it merges buckets
-# only where the padding it adds is nearly free.
+# Cost of one extra bucket, in the same count * nb^2 units as the per-block
+# factorisation work: it merges buckets only where the padding it adds is
+# nearly free. The JAX package launches once per bucket; the port launches
+# once for all of them, but keeps this cost so that the layouts match.
 _LAUNCH_COST = 2048.0
 
 
@@ -136,11 +137,7 @@ class EmulatorLikelihood:
         lead = theta.shape[:-1]
         z, v = self.gp_eval(theta.reshape(-1, theta.shape[-1]))
         if self.mode == "block":
-            ll = None
-            for U_b, D_b, d0_b in zip(self.U, self.D, self.d0):
-                term = fused_block_mvn_loglike(U_b, D_b, d0_b, z, v)
-                ll = term if ll is None else ll + term
-            return ll.reshape(lead)
+            return fused_block_mvn_loglike_buckets(self.U, self.D, self.d0, z, v).reshape(lead)
         if self.mode == "lowrank":
             k = z.shape[-1]
             return woodbury_loglike(self.wb, z.reshape(*lead, k), v.reshape(*lead, k))
@@ -241,7 +238,7 @@ def build_likelihood(
     theta_max: Sequence[float],
     emulator_cov_unexplained: dict[str, np.ndarray] | None = None,
     mode: str = "block",
-    device="cpu",
+    device="cuda",
     dtype: torch.dtype | None = None,
     observables: dict[str, Any] | None = None,
 ) -> EmulatorLikelihood:
@@ -253,7 +250,7 @@ def build_likelihood(
     """
     if mode not in MODES:
         raise ValueError(f"unknown likelihood mode {mode!r}; expected one of {MODES}")
-    device = torch.device(device)
+    device = emulator_mod.resolve_device(device)
     dtype = dtype or emulator_mod.default_dtype(device)
 
     def to_device(x):

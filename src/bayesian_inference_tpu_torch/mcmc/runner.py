@@ -42,6 +42,7 @@ from bayesian_inference_tpu_torch.mcmc.stretch import (
     run_chunk,
     run_chunk_batched,
 )
+from bayesian_inference_tpu_torch.models.emulator import resolve_device
 from bayesian_inference_tpu_torch.pipeline.configs import EmulationConfig, MCMCConfig
 
 logger = logging.getLogger(__name__)
@@ -271,7 +272,7 @@ def _run_production(state, advance, generators, n_total: int, checkpoint_every: 
 def run_mcmc(
     config: MCMCConfig,
     seed: int = 0,
-    device="cpu",
+    device="cuda",
     emulation_results: dict[str, dict[str, Any]] | None = None,
     observables: dict[str, Any] | None = None,
     write: bool = True,
@@ -315,7 +316,7 @@ def run_mcmc(
     theta_min = np.asarray(param_spec["min"], float)
     theta_max = np.asarray(param_spec["max"], float)
     ndim = len(param_spec["names"])
-    device = torch.device(device)
+    device = resolve_device(device)
 
     emulation_config, emulation_results, observables = _analysis_inputs(config, emulation_results, observables)
     if closure_index >= 0:
@@ -440,7 +441,7 @@ def run_closure_batch(
     config: MCMCConfig,
     closure_indices: Sequence[int],
     seed: int = 0,
-    device="cpu",
+    device="cuda",
     mode: str | None = None,
     emulation_results: dict[str, dict[str, Any]] | None = None,
     observables: dict[str, Any] | None = None,
@@ -453,10 +454,9 @@ def run_closure_batch(
 
     The P points' likelihoods differ only in the pseudodata residual offset,
     so the P ensembles advance together: each half-step is one log-posterior
-    call over all P * W/2 walkers (one GP predict, and one kernel launch per
-    width bucket in block mode or one in total in lowrank mode). The
-    per-point offsets, and in lowrank mode the per-point Woodbury (b, c0),
-    are built once, before the chain.
+    call over all P * W/2 walkers (one GP predict and one kernel launch, in
+    either mode). The per-point offsets, and in lowrank mode the per-point
+    Woodbury (b, c0), are built once, before the chain.
 
     Point i behaves exactly as ``run_mcmc(config_i, seed=seed + i,
     closure_index=i)``: the same pseudodata (``default_rng(seed + i +
@@ -487,7 +487,7 @@ def run_closure_batch(
     theta_max = np.asarray(param_spec["max"], float)
     ndim = len(param_spec["names"])
     W = config.n_walkers
-    device = torch.device(device)
+    device = resolve_device(device)
 
     emulation_config, emulation_results, observables = _analysis_inputs(config, emulation_results, observables)
     timings: dict[str, float] = {}

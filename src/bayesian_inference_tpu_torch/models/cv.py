@@ -27,7 +27,7 @@ from bayesian_inference_tpu_torch.io import hdf5, observables as obs_io
 from bayesian_inference_tpu_torch.models import gp as gp_mod
 from bayesian_inference_tpu_torch.models import gp_fit
 from bayesian_inference_tpu_torch.models import pca as pca_mod
-from bayesian_inference_tpu_torch.models.emulator import default_dtype
+from bayesian_inference_tpu_torch.models.emulator import default_dtype, resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -37,7 +37,7 @@ def cross_validate_group(
     k: int | None = None,
     seed: int = 0,
     n_opt_iters: int = 60,
-    device="cpu",
+    device="cuda",
     observables: dict[str, Any] | None = None,
     rand_logs: Sequence | None = None,
 ) -> dict[str, Any]:
@@ -52,6 +52,7 @@ def cross_validate_group(
     runs on ``device`` in its default dtype (float64 on the CPU, float32 on
     CUDA); the artifact is float64 numpy.
     """
+    device = resolve_device(device)
     if k is None:
         k = group_config.cross_validation_k
     if observables is None:
@@ -73,7 +74,6 @@ def cross_validate_group(
     perm = rng.permutation(n)
     folds = perm[: fold_size * k].reshape(k, fold_size)
     n_pc = group_config.n_pc
-    device = torch.device(device)
     dtype = default_dtype(device)
     spec = group_config.fit_spec(n_iters=n_opt_iters)
     cfg = group_config.kernel_config()
@@ -136,13 +136,14 @@ def cross_validate(
     emulation_config,
     seed: int = 0,
     n_opt_iters: int = 60,
-    device="cpu",
+    device="cuda",
     observables: dict[str, Any] | None = None,
     write: bool = True,
 ) -> dict[str, Any]:
     """CV for every group with ``cross_validation: true``; returns {group:
     artifact} and, with ``write``, writes each to
     ``cross_validation_<group>.h5`` in the run directory."""
+    device = resolve_device(device)
     out: dict[str, Any] = {}
     for name, group_config in emulation_config.emulation_groups_config.items():
         if not group_config.cross_validation:

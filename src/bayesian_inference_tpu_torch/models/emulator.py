@@ -35,6 +35,16 @@ def default_dtype(device) -> torch.dtype:
     return torch.float64 if torch.device(device).type == "cpu" else torch.float32
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``. The entry points default to
+    ``"cuda"``; where torch finds no card that raises, and nothing falls back
+    to the CPU: pass ``device="cpu"`` for that."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device}: torch finds no CUDA device; pass device='cpu' to run on the CPU")
+    return device
+
+
 def _fit_gate_open(config: EmulationGroupConfig) -> bool:
     """True when this group needs (re)fitting; removes stale output when forced."""
     if os.path.exists(config.emulation_outputfile):
@@ -125,7 +135,7 @@ def fit_emulators(
     emulation_config: EmulationConfig,
     seed: int = 0,
     n_opt_iters: int = 60,
-    device="cpu",
+    device="cuda",
     observables: dict[str, Any] | None = None,
     write: bool = True,
 ) -> dict[str, dict[str, Any]]:
@@ -137,7 +147,7 @@ def fit_emulators(
     already-read observables dict (read from the configured h5 file when
     None). ``write=False`` keeps the artifacts in memory only.
     """
-    device = torch.device(device)
+    device = resolve_device(device)
     dtype = default_dtype(device)
     t0 = time.perf_counter()
     pending: dict[str, dict[str, Any]] = {}
@@ -192,11 +202,11 @@ def read_emulators(config: EmulationGroupConfig) -> dict[str, Any]:
 
 
 def posterior_from_artifact(
-    artifact: dict[str, Any], device="cpu", dtype: torch.dtype | None = None
+    artifact: dict[str, Any], device="cuda", dtype: torch.dtype | None = None
 ) -> tuple[KernelConfig, GPPosterior]:
     """The stacked GPPosterior (leading axis = PC) of an artifact written by
     either package, on ``device`` in ``dtype``."""
-    device = torch.device(device)
+    device = resolve_device(device)
     dtype = dtype or default_dtype(device)
     em = artifact["emulators"]
 

@@ -31,6 +31,7 @@ from typing import Any
 import torch
 
 from bayesian_inference_tpu_torch.io import hdf5, tables
+from bayesian_inference_tpu_torch.models.emulator import resolve_device
 from bayesian_inference_tpu_torch.pipeline.configs import (
     EmulationConfig,
     MCMCConfig,
@@ -57,14 +58,14 @@ class SteerAnalysis:
         self,
         config_file: str | None = None,
         config: dict[str, Any] | None = None,
-        device="cpu",
+        device="cuda",
         write: bool = True,
     ):
         if (config_file is None) == (config is None):
             raise ValueError("SteerAnalysis takes exactly one of config_file and config")
         self.config_file = config_file or ""
         self.config = load_yaml(config_file) if config is None else config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.write = write
         config = self.config
         self.output_dir = config["output_dir"]

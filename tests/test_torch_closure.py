@@ -32,7 +32,7 @@ def closure_fixture(tmp_path_factory):
     ac = tconfigs.load_yaml(path)["analyses"][name]
     kw = dict(analysis_name=name, parameterization=param, analysis_config=ac, config_file=str(path))
     emu = tconfigs.EmulationConfig.from_config_file(**kw)
-    temulator.fit_emulators(emu, seed=0, n_opt_iters=20)
+    temulator.fit_emulators(emu, seed=0, n_opt_iters=20, device="cpu")
 
     def config(closure_index=-1):
         return tconfigs.MCMCConfig(**kw, closure_index=closure_index)
@@ -47,7 +47,7 @@ def test_closure_run_mcmc_uses_the_jax_pseudodata(closure_fixture):
     design point and the pseudodata."""
     r = closure_fixture
     cfg = r.config(closure_index=1)
-    out = trunner.run_mcmc(cfg, seed=3, closure_index=1)
+    out = trunner.run_mcmc(cfg, seed=3, device="cpu", closure_index=1)
     ref = jobs.data_array_from_h5(cfg.output_dir, "observables.h5", pseudodata_index=1,
                                   observable_filter=r.emu.observable_filter, rng=np.random.default_rng(3 + 12345))
     for key in ("y", "y_err"):
@@ -73,10 +73,10 @@ def test_batched_closure_matches_sequential(closure_fixture, mode):
     seq = {}
     for i in INDICES:
         cfg = r.config(closure_index=i)
-        seq[i] = trunner.run_mcmc(cfg, seed=i, closure_index=i, mode=mode)
+        seq[i] = trunner.run_mcmc(cfg, seed=i, device="cpu", closure_index=i, mode=mode)
         shutil.rmtree(cfg.mcmc_output_dir)
 
-    batched = trunner.run_closure_batch(r.config(), INDICES, seed=0, mode=mode)
+    batched = trunner.run_closure_batch(r.config(), INDICES, seed=0, device="cpu", mode=mode)
     assert sorted(batched) == list(INDICES)
     for i in INDICES:
         b, s = batched[i], seq[i]

@@ -109,6 +109,67 @@ def test_fused_block_mvn_per_point_offsets_match_single_point_launches(device):
     torch.testing.assert_close(ll.double(), ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
 
 
+def _buckets(widths, k, W, n_points, seed=8):
+    """One bucket per width (1-5 blocks each, exactly that wide), shared z and
+    v, and d0 (n_obs, nb) or (n_points, n_obs, nb) per bucket."""
+    rng = np.random.default_rng(seed)
+    Us, Ds, d0s = [], [], []
+    for nb in widths:
+        n_obs = int(rng.integers(1, 6))
+        U, D, _, _, _ = _mvn(n_obs, nb, k, 1, seed=int(rng.integers(1 << 30)))
+        Us.append(U)
+        Ds.append(D)
+        d0s.append(rng.normal(size=(n_points, n_obs, nb) if n_points > 1 else (n_obs, nb)))
+    return Us, Ds, d0s, rng.normal(size=(W, k)), rng.uniform(0.01, 0.5, (W, k))
+
+
+@pytest.mark.parametrize("widths,k,W,n_points", [
+    ((1, 7, 8), 1, 1, 1),
+    ((16, 24), 7, 31, 1),
+    ((8, 16, 24), 41, 50, 1),
+    ((33, 48), 7, 100, 2),
+    ((7, 16, 33), 41, 1500, 30),
+    ((1, 8, 16, 24, 33, 48), 41, 100, 1),
+])
+def test_fused_block_mvn_buckets_kernel(device, widths, k, W, n_points):
+    """K1's all-bucket launch: one launch, within the chip smoke's 1e-5 of
+    max |ll| of the float64 plain version, bit-equal on repeat and to one
+    launch per point, and NaN only in the walker whose covariances are not
+    positive definite."""
+    Us, Ds, d0s, z, v = _buckets(widths, k, W, n_points)
+    t64 = lambda xs: tuple(torch.tensor(x, device=device) for x in xs)  # noqa: E731
+    ops64 = (t64(Us), t64(Ds), t64(d0s), *t64((z, v)))
+    ops = tuple(tuple(x.float() for x in o) if isinstance(o, tuple) else o.float() for o in ops64)
+    before = fused_mvn.KERNEL.launches
+    ll = fused_mvn.fused_block_mvn_loglike_buckets(*ops)
+    torch.cuda.synchronize()
+    assert fused_mvn.KERNEL.launches == before + 1
+    ref = fused_mvn.fused_block_mvn_buckets_plain(*ops64)
+    assert ll.shape == (W,) and ll.dtype == torch.float32 and bool(torch.isfinite(ll).all())
+    assert float((ll.double() - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert torch.equal(ll, fused_mvn.fused_block_mvn_loglike_buckets(*ops))
+
+    Us32, Ds32, d0s32, z32, v32 = ops
+    if n_points > 1:
+        Wh = W // n_points
+        single = torch.cat([
+            fused_mvn.fused_block_mvn_loglike_buckets(Us32, Ds32, tuple(d[p].contiguous() for d in d0s32),
+                                                      z32[p * Wh:(p + 1) * Wh].contiguous(),
+                                                      v32[p * Wh:(p + 1) * Wh].contiguous())
+            for p in range(n_points)
+        ])
+        assert torch.equal(ll, single)
+
+    bad = W // 2
+    v_bad = v32.clone()
+    v_bad[bad] = -1e3 * v_bad[bad]
+    ll_bad = fused_mvn.fused_block_mvn_loglike_buckets(Us32, Ds32, d0s32, z32, v_bad)
+    torch.cuda.synchronize()
+    others = torch.arange(W, device=device) != bad
+    assert bool(torch.isnan(ll_bad[bad]))
+    assert torch.equal(ll_bad[others], ll[others])
+
+
 def _capacitance(B, k, seed=7):
     rng = np.random.default_rng(seed)
     Wf = rng.normal(size=(200, k)) * 0.1

@@ -77,7 +77,7 @@ def test_cross_validate_matches_jax_on_fixture(tmp_path, monkeypatch):
                                       dtype=spec.theta0.dtype, minval=spec.log_lo, maxval=spec.log_hi))
         for f in range(K)
     ]
-    ours = tcv.cross_validate_group(tgroup, seed=SEED, n_opt_iters=N_ITERS, rand_logs=rand_logs)
+    ours = tcv.cross_validate_group(tgroup, seed=SEED, n_opt_iters=N_ITERS, device="cpu", rand_logs=rand_logs)
 
     assert sorted(ours) == sorted(ref)
     for key in ("fold_indices", "truth", "k", "seed"):
@@ -92,7 +92,7 @@ def test_cross_validate_matches_jax_on_fixture(tmp_path, monkeypatch):
         np.testing.assert_allclose(ours[key], np.asarray(ref[key]), rtol=1e-6, err_msg=key)
 
     observables = tobs.read_observables(temu.output_dir, "observables.h5")
-    out = tcv.cross_validate(temu, seed=SEED, n_opt_iters=N_ITERS, observables=observables)
+    out = tcv.cross_validate(temu, seed=SEED, n_opt_iters=N_ITERS, device="cpu", observables=observables)
     assert sorted(out) == ["group_ch"]
     stored = thdf5.read_dict_from_h5(temu.output_dir, "cross_validation_group_ch.h5", verbose=False)
     assert sorted(stored) == sorted(ref)
@@ -102,4 +102,4 @@ def test_cross_validate_matches_jax_on_fixture(tmp_path, monkeypatch):
 def test_cross_validate_refuses_a_bad_k(tmp_path):
     _, temu, _ = _emulation_configs(tmp_path, n_restarts=1)
     with pytest.raises(ValueError, match="cross_validation_k=1 invalid"):
-        tcv.cross_validate_group(temu.emulation_groups_config["group_ch"], k=1)
+        tcv.cross_validate_group(temu.emulation_groups_config["group_ch"], k=1, device="cpu")

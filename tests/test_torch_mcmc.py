@@ -4,6 +4,7 @@ stretch move, host and device chain statistics and run_mcmc, fed the JAX
 package's fitted emulator artifacts on the bundled fixture; plus the port's
 own fit-then-sample run and its import hygiene."""
 
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -30,8 +31,10 @@ from bayesian_inference_tpu_torch.mcmc import runner as trunner
 from bayesian_inference_tpu_torch.mcmc import stats as tstats
 from bayesian_inference_tpu_torch.mcmc import stretch as tstretch
 from bayesian_inference_tpu_torch.mcmc.sampler_archive import EnsembleSamplerArchive
+from bayesian_inference_tpu_torch.models import cv as tcv
 from bayesian_inference_tpu_torch.models import emulator as temulator
 from bayesian_inference_tpu_torch.pipeline import configs as tconfigs
+from bayesian_inference_tpu_torch.pipeline import steer as tsteer
 
 N_WALKERS, N_BURN, N_STEPS = 16, 40, 100
 
@@ -63,7 +66,7 @@ def fixture_run(tmp_path_factory):
     jlike = {mode: jlik.build_likelihood(jemu, artifacts, exp, theta_min=lo, theta_max=hi, mode=mode)
              for mode in ("block", "lowrank")}
     tlike = {mode: tlik.build_likelihood(temu, artifacts, exp, theta_min=lo, theta_max=hi, mode=mode,
-                                         observables=observables)
+                                         device="cpu", observables=observables)
              for mode in ("block", "lowrank")}
     return SimpleNamespace(path=path, tmp=tmp, jemu=jemu, jmcmc=jmcmc, temu=temu, tmcmc=tmcmc, artifacts=artifacts,
                            observables=observables, exp=exp, lo=lo, hi=hi, jlike=jlike, tlike=tlike)
@@ -142,10 +145,28 @@ def test_log_posterior_with_d0_matches_jax(fixture_run, mode):
             np.testing.assert_allclose(ours[~outside], ref[~outside], rtol=1e-8)
 
 
+def test_block_likelihood_is_one_all_bucket_call(fixture_run, monkeypatch):
+    """A block-mode evaluation hands every bucket to one call of the fused
+    kernel's wrapper (one launch on the card), whatever the bucket count."""
+    r = fixture_run
+    like = r.tlike["block"]
+    inner, calls = tlik.fused_block_mvn_loglike_buckets, []
+
+    def counted(Us, Ds, d0s, z, v):
+        calls.append(len(Us))
+        return inner(Us, Ds, d0s, z, v)
+
+    monkeypatch.setattr(tlik, "fused_block_mvn_loglike_buckets", counted)
+    lp = like.log_posterior(t64(_thetas(r)))
+    assert calls == [len(like.U)]
+    assert np.isfinite(to_np(lp)).sum() == 8
+
+
 def test_unknown_likelihood_mode_is_refused(fixture_run):
     r = fixture_run
     with pytest.raises(ValueError, match="unknown likelihood mode"):
-        tlik.build_likelihood(r.temu, r.artifacts, r.exp, r.lo, r.hi, mode="dense", observables=r.observables)
+        tlik.build_likelihood(r.temu, r.artifacts, r.exp, r.lo, r.hi, mode="dense", device="cpu",
+                              observables=r.observables)
 
 
 def test_stretch_move_with_injected_jax_draws(fixture_run):
@@ -199,8 +220,8 @@ def _run_mcmc_matches_jax_under_injected_draws(r, mode):
     from bayesian_inference_tpu.io.hdf5 import read_dict_from_h5
 
     draws, jburn = _jax_run_mcmc_draws(r.jlike[mode], r.jmcmc, r.lo, r.hi)
-    out = trunner.run_mcmc(r.tmcmc, emulation_results=r.artifacts, observables=r.observables, write=False,
-                           draws=draws, mode=mode)
+    out = trunner.run_mcmc(r.tmcmc, device="cpu", emulation_results=r.artifacts, observables=r.observables,
+                           write=False, draws=draws, mode=mode)
     np.testing.assert_allclose(out["burn_log_prob"], jburn, rtol=1e-8)
 
     jrunner.run_mcmc(r.jmcmc, seed=0, mode=mode)
@@ -229,12 +250,12 @@ def test_port_fit_then_sample_on_fixture(fixture_run, tmp_path):
     path, _, _ = make_analysis_yaml(tmp_path, n_walkers=N_WALKERS, n_burn_steps=N_BURN,
                                     n_sampling_steps=N_STEPS, n_restarts=4)
     temu, tmcmc, _ = _configs(path, tconfigs)
-    artifacts = temulator.fit_emulators(temu, seed=0, n_opt_iters=20)
+    artifacts = temulator.fit_emulators(temu, seed=0, n_opt_iters=20, device="cpu")
     assert sorted(artifacts) == ["group_ch", "group_pi"]
     for name, art in artifacts.items():
         assert Path(temu.emulation_groups_config[name].emulation_outputfile).exists()
         assert np.isfinite(art["emulators"]["lml"]).all()
-    out = trunner.run_mcmc(tmcmc, seed=1)
+    out = trunner.run_mcmc(tmcmc, seed=1, device="cpu")
     assert out["chain"].shape == (N_STEPS, N_WALKERS, 6)
     assert np.isfinite(out["log_prob"]).all()
     assert 0.0 < out["acceptance_fraction"].mean() < 1.0
@@ -301,6 +322,43 @@ def test_batched_and_device_closure_statistics_match_jax():
         np.testing.assert_allclose(tau_p, jstats.integrated_time(chain[:, p], quiet=True), rtol=1e-8)
         np.testing.assert_array_equal(rel_p, jrel_p)
         np.testing.assert_allclose(rhat[p], jstats.split_rhat(chain[:, p]), rtol=1e-10)
+
+
+# The port's entry points, each with the arguments of a call on the fixture
+# that leaves ``device`` at its default.
+ENTRY_POINTS = {
+    "fit_emulators": (temulator.fit_emulators, lambda r: ((r.temu,), {"write": False})),
+    "posterior_from_artifact": (temulator.posterior_from_artifact,
+                                lambda r: ((r.artifacts[next(iter(r.artifacts))],), {})),
+    "cross_validate_group": (tcv.cross_validate_group,
+                             lambda r: ((next(iter(r.temu.emulation_groups_config.values())),), {"k": 2})),
+    "cross_validate": (tcv.cross_validate, lambda r: ((r.temu,), {"write": False})),
+    "run_mcmc": (trunner.run_mcmc, lambda r: ((r.tmcmc,), {"emulation_results": r.artifacts, "write": False})),
+    "run_closure_batch": (trunner.run_closure_batch,
+                          lambda r: ((r.tmcmc, [0]), {"emulation_results": r.artifacts, "write": False})),
+    "build_likelihood": (tlik.build_likelihood,
+                         lambda r: ((r.temu, r.artifacts, r.exp, r.lo, r.hi), {"observables": r.observables})),
+    "SteerAnalysis": (tsteer.SteerAnalysis, lambda r: ((), {"config_file": str(r.path), "write": False})),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_defaults_to_the_card(name):
+    """Every entry point of the port runs on the card unless the caller asks
+    for the CPU."""
+    fn = ENTRY_POINTS[name][0]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_default_raises_without_a_card(fixture_run, monkeypatch, name):
+    """Called with the default device where torch finds no card, an entry
+    point raises before any work; it never falls back to the CPU."""
+    fn, call = ENTRY_POINTS[name]
+    args, kwargs = call(fixture_run)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn(*args, **kwargs)
 
 
 def test_port_never_imports_jax():

@@ -162,6 +162,52 @@ def test_fused_block_mvn_plain_per_point_offsets_match_per_point_calls():
     np.testing.assert_allclose(ours, per_point, rtol=1e-12)
 
 
+def _production_buckets(rng, W, n_points, k=41):
+    """Bucketed operands shaped like the production likelihood (block widths
+    1-8 / 9-16 / 17-24 over 40 / 96 / 8 observables, padded into nb 8 / 16 /
+    24 buckets by the likelihood's own bucketize_blocks), with one d0 table
+    per point when ``n_points``."""
+    from bayesian_inference_tpu_torch.mcmc.likelihood import bucketize_blocks
+
+    widths = [*rng.integers(1, 9, 40), *rng.integers(9, 17, 96), *rng.integers(17, 25, 8)]
+    U = [rng.normal(size=(w, k)) * np.exp(-np.arange(k) / 10.0) * 0.2 for w in widths]
+    D = []
+    for w in widths:
+        A = rng.normal(size=(w, w)) * 0.05
+        D.append(A @ A.T + np.diag(rng.uniform(0.005, 0.05, w)))
+    d0 = [rng.normal(size=(max(n_points, 1), w)) * 0.2 for w in widths]
+    Us, Ds, _ = bucketize_blocks(U, D, [x[0] for x in d0])
+    per_point = [bucketize_blocks(U, D, [x[p] for x in d0])[2] for p in range(max(n_points, 1))]
+    d0s = [np.stack(b) for b in zip(*per_point)] if n_points else per_point[0]
+    return Us, Ds, d0s, rng.normal(size=(W, k)), rng.uniform(1e-3, 0.1, (W, k))
+
+
+@pytest.mark.parametrize("n_points", [0, 3])
+def test_fused_block_mvn_buckets_matches_jax_per_bucket_calls(n_points):
+    """The all-bucket call (one launch on the card) against the sum of the JAX
+    package's per-bucket fused_block_mvn_loglike on the production bucket mix
+    at small W, with one d0 table or one per point (walkers point-major; JAX
+    called per point), rtol 1e-10 (float64); and equal to the sum of the
+    one-bucket calls, in bucket order."""
+    Wh = 4
+    W = Wh * max(n_points, 1)
+    Us, Ds, d0s, z, v = _production_buckets(np.random.default_rng(14), W, n_points)
+    assert [u.shape[:2] for u in Us] == [(40, 8), (96, 16), (8, 24)]
+    ours = to_np(tmvn.fused_block_mvn_loglike_buckets(*(tuple(map(t64, x)) for x in (Us, Ds, d0s)), t64(z), t64(v)))
+    points = [(d0s, z, v)] if not n_points else [
+        ([d[p] for d in d0s], z[p * Wh:(p + 1) * Wh], v[p * Wh:(p + 1) * Wh]) for p in range(n_points)]
+    ref = np.concatenate([
+        sum(np.asarray(jmvn.fused_block_mvn_loglike(*map(jnp.asarray, (U, D, d0, zp, vp))))
+            for U, D, d0 in zip(Us, Ds, d0p))
+        for d0p, zp, vp in points
+    ])
+    assert ours.shape == (W,)
+    np.testing.assert_allclose(ours, ref, rtol=1e-10)
+    one_by_one = sum(to_np(tmvn.fused_block_mvn_loglike(t64(U), t64(D), t64(d0), t64(z), t64(v)))
+                     for U, D, d0 in zip(Us, Ds, d0s))
+    np.testing.assert_array_equal(ours, one_by_one)
+
+
 def _capacitance_operands(rng, lead, nb):
     """Capacitance-shaped (dY, C) of the lowrank likelihood: C = G + diag(1/v)."""
     Wf = rng.normal(size=(3 * nb, nb)) * 0.3

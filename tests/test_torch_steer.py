@@ -36,7 +36,7 @@ def fitted(tmp_path_factory):
     ac = tconfigs.load_yaml(path)["analyses"][name]
     kw = dict(analysis_name=name, parameterization=param, analysis_config=ac, config_file=str(path))
     emu = tconfigs.EmulationConfig.from_config_file(**kw)
-    artifacts = temulator.fit_emulators(emu, seed=0, n_opt_iters=20, write=False)
+    artifacts = temulator.fit_emulators(emu, seed=0, n_opt_iters=20, device="cpu", write=False)
     return SimpleNamespace(config=tconfigs.MCMCConfig(**kw), artifacts=artifacts)
 
 
@@ -70,7 +70,7 @@ def test_run_mcmc_resume_is_bit_exact(fitted, monkeypatch, mode, torn):
     burn-in log-probs and R-hat. With the last record torn it resumes from
     the one before. The checkpoint is gone once a run completes."""
     r = fitted
-    kw = dict(seed=1, emulation_results=r.artifacts, write=False, mode=mode, checkpoint_every=CADENCE)
+    kw = dict(seed=1, device="cpu", emulation_results=r.artifacts, write=False, mode=mode, checkpoint_every=CADENCE)
     path = trunner._checkpoint_path(r.config)
     whole = trunner.run_mcmc(r.config, **kw)
     assert not os.path.exists(path)
@@ -103,7 +103,7 @@ def test_closure_batch_resume_is_bit_exact(fitted, monkeypatch):
     the header pins the point indices and each record holds one generator
     state per point."""
     r = fitted
-    kw = dict(seed=0, emulation_results=r.artifacts, write=False, checkpoint_every=CADENCE)
+    kw = dict(seed=0, device="cpu", emulation_results=r.artifacts, write=False, checkpoint_every=CADENCE)
     path = trunner._closure_checkpoint_path(r.config)
     whole = trunner.run_closure_batch(r.config, (0, 2), **kw)
     assert not os.path.exists(path)
@@ -125,7 +125,7 @@ def test_foreign_checkpoint_restarts_fresh(fitted, monkeypatch, caplog):
     """A checkpoint left by a run with another seed is not resumed from: the
     run warns, starts fresh and equals a run that found no checkpoint."""
     r = fitted
-    kw = dict(emulation_results=r.artifacts, write=False, checkpoint_every=CADENCE)
+    kw = dict(device="cpu", emulation_results=r.artifacts, write=False, checkpoint_every=CADENCE)
     _interrupt_after(monkeypatch, "run_chunk", 2 + 1)
     with pytest.raises(KeyboardInterrupt):
         trunner.run_mcmc(r.config, seed=5, **kw)
@@ -215,7 +215,7 @@ def test_plot_toggles_raise_before_any_stage(tmp_path):
     path, cfg = _steer_yaml(tmp_path)
     cfg["plot"]["mcmc"] = True
     with pytest.raises(NotImplementedError, match=r"plot toggles \['mcmc'\].*ROADMAP"):
-        tsteer.SteerAnalysis(config=cfg)
+        tsteer.SteerAnalysis(config=cfg, device="cpu")
     assert not Path(cfg["output_dir"]).exists()
 
 
