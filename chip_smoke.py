@@ -23,9 +23,12 @@ launch counts set to 0 just before it and read just after:
   closure batch cut during their third chunk and resumed, against
   uninterrupted runs, and production with and without chunking.
 
-Each kernel's line gives its time beside its bound (the larger of its FP32
-operations over 67 TFLOP/s and its bytes over 3.35 TB/s, the H100 SXM's
-published peaks) and the share of the bound it reaches. In block mode every
+Each kernel's line gives its device time beside its bound (the larger of
+its FP32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s, the H100
+SXM's published peaks) and the share of the bound it reaches: K3 at the
+fit's three batch sizes, K4 at the lowrank batch sizes and at the widest
+capacitance matrix it takes (64 PCs). The fit checks K3's launches by batch
+size; the steer prints them. In block mode every
 likelihood evaluation is one launch of K1 for all width buckets; each path
 checks that its K1 launches equal its block-mode evaluations.
 
@@ -132,10 +135,16 @@ def nvidia_smi_line() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls (CUDA events)."""
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls (CUDA events).
+
+    The card first runs a spin kernel of about 5 ms, during which the host
+    queues all the calls, so a kernel shorter than its wrapper's host
+    overhead is timed on the device and not at the rate the host launches it.
+    """
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -232,54 +241,93 @@ def matern_blocks(B: int, n: int, device, seed: int = 0) -> torch.Tensor:
     return train_gram(KernelConfig(nu=1.5), params, t(X), 1e-6)
 
 
-def phase_k3(device, B: int = 41 * 51, reps: int = 20) -> dict:
-    """K3 (diag_chol_inv) against its plain version at the fit's exploration batch."""
+# K3's batch sizes on the main path: the fit's exploration (41 PCs x 51
+# restarts), polish (41 x 3) and posterior (41) stages, and its launches at
+# each per fit (1 + 15, 1 + 45 and 1 LML evaluations, 4 diagonal blocks each).
+K3_BATCHES = (41 * 51, 41 * 3, 41)
+K3_FIT_LAUNCHES = {41 * 51: 64, 41 * 3: 184, 41: 4}
+
+
+@contextlib.contextmanager
+def count_k3_batches():
+    """Count K3 launches by batch size while the block runs."""
+    from collections import Counter
+
     from bayesian_inference_tpu_torch.ops import blocked_cholesky as bc
 
-    A64 = matern_blocks(B, bc.NB, device)
-    A = A64.float().contiguous()
-    L, Linv = bc.diag_chol_inv(A)
-    torch.cuda.synchronize()
-    Lp, Linvp = bc.diag_chol_inv_plain(A)
-    L64, Linv64 = bc.diag_chol_inv_plain(A64)
-    err = {
-        "L_rel": normwise_rel(L, Lp),
-        "Linv_rel": normwise_rel(Linv, Linvp),
-        "L_rel_f64_kernel": normwise_rel(L, L64),
-        "L_rel_f64_plain": normwise_rel(Lp, L64),
-        "Linv_rel_f64_kernel": normwise_rel(Linv, Linv64),
-        "Linv_rel_f64_plain": normwise_rel(Linvp, Linv64),
-    }
-    max_abs = float(max((L - Lp).abs().max(), (Linv - Linvp).abs().max()))
-    check(bool(torch.isfinite(L).all() and torch.isfinite(Linv).all()), "K3: non-finite factor of an SPD block")
-    for key, tol in (("L_rel_f64_kernel", K3_TOL_L), ("Linv_rel_f64_kernel", K3_TOL_LINV),
-                     ("L_rel", 2 * K3_TOL_L), ("Linv_rel", 2 * K3_TOL_LINV)):
-        check(err[key] <= tol, f"K3: {key} = {err[key]:.3g} > {tol}")
+    inner = bc._diag_chol_inv_cuda
+    batches = Counter()
 
-    # A block that is not positive definite must come back as NaN, and only it.
-    bad = A[:4].clone()
-    bad[1] = -bad[1]
-    Lb, _ = bc.diag_chol_inv(bad)
-    torch.cuda.synchronize()
-    check(bool(torch.isnan(Lb[1]).any()) and bool(torch.isfinite(Lb[[0, 2, 3]]).all()),
-          "K3: a non-SPD block must yield NaN without touching its neighbours")
+    def counted(A):
+        batches[A.shape[0]] += 1
+        return inner(A)
 
-    eye = torch.eye(bc.NB, dtype=A.dtype, device=device).expand_as(A)
+    bc._diag_chol_inv_cuda = counted
+    try:
+        yield batches
+    finally:
+        bc._diag_chol_inv_cuda = inner
 
-    def library():  # the library route: cholesky_ex, then solve_triangular of I
-        return torch.linalg.solve_triangular(torch.linalg.cholesky_ex(A)[0], eye, upper=False)
 
-    ms, plain_ms = time_pair(lambda: bc.diag_chol_inv(A), lambda: bc.diag_chol_inv_plain(A), reps)
-    library_ms = cuda_ms(library, reps)
+def phase_k3(device, reps: int = 20) -> list[dict]:
+    """K3 (diag_chol_inv) against its plain version and the library route at
+    the fit's batch sizes, largest first."""
+    from bayesian_inference_tpu_torch.ops import blocked_cholesky as bc
+
     n = bc.NB
-    b = bound(B * 2 * n**3 / 3, 4 * 3 * B * n * n)  # Cholesky + triangular inverse; read A, write L and L^-1
-    print(f"K3 diag_chol_inv ({B}, {bc.NB}, {bc.NB}) f32: normwise rel err vs float64 plain: kernel "
-          f"L {err['L_rel_f64_kernel']:.3g} (tol {K3_TOL_L}) / L^-1 {err['Linv_rel_f64_kernel']:.3g} "
-          f"(tol {K3_TOL_LINV}), plain f32 L {err['L_rel_f64_plain']:.3g} / L^-1 {err['Linv_rel_f64_plain']:.3g}; "
-          f"kernel vs plain f32: L {err['L_rel']:.3g} / L^-1 {err['Linv_rel']:.3g} (tol twice the above), "
-          f"max abs err {max_abs:.3g}; non-SPD -> NaN ok; kernel {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call, "
-          f"library (cholesky_ex + solve_triangular) {library_ms:.4f} ms/call; {bound_text(ms, b)}", flush=True)
-    return {"max_abs_err": max_abs, **timed(ms, plain_ms, b, library_ms, shape=f"({B}, {n}, {n})")}
+    results = []
+    for B in K3_BATCHES:
+        A64 = matern_blocks(B, n, device)
+        A = A64.float().contiguous()
+        L, Linv = bc.diag_chol_inv(A)
+        torch.cuda.synchronize()
+        Lp, Linvp = bc.diag_chol_inv_plain(A)
+        L64, Linv64 = bc.diag_chol_inv_plain(A64)
+        err = {
+            "L_rel": normwise_rel(L, Lp),
+            "Linv_rel": normwise_rel(Linv, Linvp),
+            "L_rel_f64_kernel": normwise_rel(L, L64),
+            "L_rel_f64_plain": normwise_rel(Lp, L64),
+            "Linv_rel_f64_kernel": normwise_rel(Linv, Linv64),
+            "Linv_rel_f64_plain": normwise_rel(Linvp, Linv64),
+        }
+        max_abs = float(max((L - Lp).abs().max(), (Linv - Linvp).abs().max()))
+        check(bool(torch.isfinite(L).all() and torch.isfinite(Linv).all()), "K3: non-finite factor of an SPD block")
+        for key, tol in (("L_rel_f64_kernel", K3_TOL_L), ("Linv_rel_f64_kernel", K3_TOL_LINV),
+                         ("L_rel", 2 * K3_TOL_L), ("Linv_rel", 2 * K3_TOL_LINV)):
+            check(err[key] <= tol, f"K3 B={B}: {key} = {err[key]:.3g} > {tol}")
+        L2, Linv2 = bc.diag_chol_inv(A)
+        repeat = bool(torch.equal(L, L2) and torch.equal(Linv, Linv2))
+        check(repeat, f"K3 B={B}: repeated launches are not bit-equal")
+
+        # A block that is not positive definite must come back as NaN, and only it.
+        bad = A[:4].clone()
+        bad[1] = -bad[1]
+        Lb, Linvb = bc.diag_chol_inv(bad)
+        torch.cuda.synchronize()
+        check(bool(torch.isnan(Lb[1]).any() and torch.isnan(Linvb[1]).any())
+              and bool(torch.isfinite(Lb[[0, 2, 3]]).all() and torch.isfinite(Linvb[[0, 2, 3]]).all()),
+              "K3: a non-SPD block must yield NaN without touching its neighbours")
+
+        eye = torch.eye(n, dtype=A.dtype, device=device).expand_as(A)
+
+        def library():  # the library route: cholesky_ex, then solve_triangular of I
+            return torch.linalg.solve_triangular(torch.linalg.cholesky_ex(A)[0], eye, upper=False)
+
+        ms, plain_ms = time_pair(lambda: bc.diag_chol_inv(A), lambda: bc.diag_chol_inv_plain(A), reps)
+        library_ms = cuda_ms(library, reps)
+        # Cholesky + triangular inverse; read A's lower triangle (all a Cholesky
+        # needs), write L and L^-1 whole (zeros above the diagonal included)
+        b = bound(B * 2 * n**3 / 3, 4 * B * (n * (n + 1) / 2 + 2 * n * n))
+        print(f"K3 diag_chol_inv ({B}, {n}, {n}) f32: normwise rel err vs float64 plain: kernel "
+              f"L {err['L_rel_f64_kernel']:.3g} (tol {K3_TOL_L}) / L^-1 {err['Linv_rel_f64_kernel']:.3g} "
+              f"(tol {K3_TOL_LINV}), plain f32 L {err['L_rel_f64_plain']:.3g} / L^-1 "
+              f"{err['Linv_rel_f64_plain']:.3g}; kernel vs plain f32: L {err['L_rel']:.3g} / L^-1 "
+              f"{err['Linv_rel']:.3g} (tol twice the above), max abs err {max_abs:.3g}; bit-equal on repeat; "
+              f"non-SPD -> NaN ok; kernel {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call, library (cholesky_ex + "
+              f"solve_triangular) {library_ms:.4f} ms/call; {bound_text(ms, b)}", flush=True)
+        results.append({"max_abs_err": max_abs, **timed(ms, plain_ms, b, library_ms, shape=f"({B}, {n}, {n})")})
+    return results
 
 
 def mvn_buckets(W: int, device, dtype, seed: int = 1, k: int = N_PCS, n_points: int = 0):
@@ -418,15 +466,17 @@ def capacitance_operands(B: int, device, dtype, seed: int = 4, k: int = N_PCS, F
     return t(r), t(M)
 
 
-def phase_k4(device, reps: int = 50) -> dict:
-    """K4 (block_mvn_loglike) at the lowrank batch sizes: B = 50 (one
-    analysis, half-ensemble) and 1,500 (30 closure points x 50)."""
+def phase_k4(device, reps: int = 50) -> list[dict]:
+    """K4 (block_mvn_loglike) at the lowrank batch sizes, B = 1,500 (30
+    closure points x 50) and 50 (one analysis, half-ensemble), with the
+    production k = 41 PCs; then at k = 64, the widest capacitance matrix the
+    kernel takes, against the float64 plain version (the dense path there)."""
     from bayesian_inference_tpu_torch.ops import tiny_mvn
 
-    result = None
-    for B in (50, 1500):
-        r, M = capacitance_operands(B, device, torch.float32)
-        r64, M64 = capacitance_operands(B, device, torch.float64)
+    results = []
+    for B, n in ((1500, N_PCS), (50, N_PCS), (50, tiny_mvn.MAX_NB)):
+        r, M = capacitance_operands(B, device, torch.float32, k=n)
+        r64, M64 = capacitance_operands(B, device, torch.float64, k=n)
         ll = tiny_mvn.block_mvn_loglike(r, M)
         quad, half_logdet = tiny_mvn.mvn_terms(r, M)
         torch.cuda.synchronize()
@@ -448,23 +498,23 @@ def phase_k4(device, reps: int = 50) -> dict:
         torch.cuda.synchronize()
         nan_ok = bool(torch.isnan(ll_bad[3])) and bool(torch.isfinite(ll_bad[[0, 1, 2, 4, 5, 6, 7]]).all())
 
-        ms, plain_ms = time_pair(lambda: tiny_mvn.block_mvn_loglike(r, M),
-                                 lambda: tiny_mvn.block_mvn_plain(r, M), reps)
-        n = N_PCS
-        b = bound(B * (n**3 / 3 + n * n), 4 * B * (n * n + n + 1))  # Cholesky + solve; read M, r; write ll
-        print(f"K4 block_mvn B={B} capacitance M = G + diag(1/v), k={N_PCS} (cond {float(cond.min()):.3g}.."
+        # the kernel's function as the lowrank likelihood calls it: (quad, half_logdet)
+        ms, plain_ms = time_pair(lambda: tiny_mvn.mvn_terms(r, M), lambda: tiny_mvn.mvn_terms_plain(r, M), reps)
+        # Cholesky + solve; read M's lower triangle and r, write quad and half_logdet
+        b = bound(B * (n**3 / 3 + n * n), 4 * B * (n * (n + 1) / 2 + n + 2))
+        print(f"K4 block_mvn B={B} capacitance M = G + diag(1/v), k={n} (cond {float(cond.min()):.3g}.."
               f"{float(cond.max()):.3g}), f32: max per-instance err / (|quad|/2 + |half_logdet|) vs float64: "
               f"kernel {rel:.3g}, plain f32 {rel_plain:.3g}, Woodbury combination {wrel:.3g} (tol {K4_TOL}); "
               f"max abs err vs plain f32 {max_abs:.3g}; non-SPD -> NaN in that instance only: {nan_ok}; "
               f"bit-equal on repeat: {repeat}; kernel {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call; "
               f"{bound_text(ms, b)}", flush=True)
-        check(ll.shape == (B,) and bool(torch.isfinite(ll).all()), f"K4: non-finite or misshapen result at B={B}")
-        check(rel <= K4_TOL and wrel <= K4_TOL, f"K4: B={B} differs from float64 by {max(rel, wrel):.3g} > {K4_TOL}")
+        what = f"K4 at B={B}, k={n}"
+        check(ll.shape == (B,) and bool(torch.isfinite(ll).all()), f"{what}: non-finite or misshapen result")
+        check(rel <= K4_TOL and wrel <= K4_TOL, f"{what}: differs from float64 by {max(rel, wrel):.3g} > {K4_TOL}")
         check(nan_ok, "K4: a non-SPD instance must yield NaN without touching its neighbours")
         check(repeat, "K4: repeated launches are not bit-equal")
-        if B == 1500:
-            result = {"max_abs_err": max_abs, **timed(ms, plain_ms, b, shape=f"B={B}, {n} x {n}")}
-    return result
+        results.append({"max_abs_err": max_abs, **timed(ms, plain_ms, b, shape=f"B={B}, {n} x {n}")})
+    return results
 
 
 def production_config(work_dir: Path, table_dir: Path, n_walkers: int, n_burn: int, n_steps: int,
@@ -567,7 +617,7 @@ def phase_slice(device, kernels, n_restarts: int = N_RESTARTS, n_opt_iters: int 
           flush=True)
 
     reset(kernels)
-    with count_evaluations() as evals:
+    with count_evaluations() as evals, count_k3_batches() as k3_batches:
         t = time.perf_counter()
         artifacts = fit_emulators(emu, seed=0, n_opt_iters=n_opt_iters, device=device,
                                   observables=observables, write=False)
@@ -588,6 +638,10 @@ def phase_slice(device, kernels, n_restarts: int = N_RESTARTS, n_opt_iters: int 
     print(f"slice kernel launches: {launches} for {evals['block']} block-mode likelihood evaluations; production "
           f"log-probs finite: {bool(np.isfinite(logp).all())}, "
           f"shape {logp.shape}; mean acceptance {af:.4f} (must lie in {ACCEPTANCE_RANGE})", flush=True)
+    print(f"slice K3 launches by batch size: {dict(sorted(k3_batches.items(), reverse=True))} "
+          f"(expected {K3_FIT_LAUNCHES})", flush=True)
+    check(dict(k3_batches) == K3_FIT_LAUNCHES and sum(k3_batches.values()) == launches["diag_chol_inv"],
+          f"slice: K3 launches by batch size {dict(k3_batches)}, expected {K3_FIT_LAUNCHES}")
     check(n_pc == sum(a["n_pc"] for a in artifacts.values()), "slice: fitted PC count")
     check(launches["diag_chol_inv"] > 0 and launches["fused_block_mvn"] > 0,
           f"slice: a kernel of the path never launched: {launches}")
@@ -829,7 +883,7 @@ def phase_steer(device, kernels) -> dict:
     config = steer_config(work_dir, WORK_DIR / "production_tables")
     analysis = config["analyses"][ANALYSIS]
     reset(kernels)
-    with count_evaluations() as evals:
+    with count_evaluations() as evals, count_k3_batches() as k3_batches:
         t = time.perf_counter()
         result = SteerAnalysis(config=config, device=device, write=False).run_analysis()
         result = result[f"{ANALYSIS}_{PARAMETERIZATION}"]
@@ -846,7 +900,7 @@ def phase_steer(device, kernels) -> dict:
     coverage = {name: float(np.mean(np.abs(a["normalized_residuals"]) < 1)) for name, a in cv.items()}
     print("steer stages (s, stage_timer): " + ", ".join(f"{k} {v:.3f}" for k, v in result["timings"].items())
           + f"; whole run {t_steer:.3f} s; kernel launches {launches} for {evals['block']} block-mode likelihood "
-          f"evaluations", flush=True)
+          f"evaluations; K3 launches by batch size {dict(sorted(k3_batches.items(), reverse=True))}", flush=True)
     print(f"steer CV (k={STEER_CV_K}, every group): 1-sigma coverage of the z-scores "
           + ", ".join(f"{name} {c:.3f}" for name, c in coverage.items())
           + f" (want ~0.68); z-scores finite: {all(np.isfinite(a['normalized_residuals']).all() for a in cv.values())}",
@@ -958,11 +1012,11 @@ def main() -> int:
     print("host I/O: no h5py and no yaml; the config dict, observables and emulator artifacts stay in memory "
           "and the runners write no files (write=False)", flush=True)
 
-    k3 = phase_k3(device)
+    k3, *k3_small = phase_k3(device)
     k1 = phase_k1(device, W=N_WALKERS // 2)
     k1_wide = phase_k1(device, W=N_WALKERS)  # the half-ensemble width of a 200-walker run
     k1_points = phase_k1_points(device)
-    k4 = phase_k4(device)
+    k4, *k4_other = phase_k4(device)
     path_launches = []
     launches, reuse = phase_slice(device, kernels)
     path_launches.append(launches)
@@ -978,7 +1032,7 @@ def main() -> int:
         {"name": "diag_chol_inv", "route": "cuda",
          "source": "src/bayesian_inference_tpu_torch/csrc/diag_chol_inv.cu",
          "replaces": "src/bayesian_inference_tpu/ops/blocked_cholesky.py:71",
-         "launches": total["diag_chol_inv"], **k3},
+         "launches": total["diag_chol_inv"], **k3, "other_shapes": k3_small},
         {"name": "fused_block_mvn", "route": "cuda",
          "source": "src/bayesian_inference_tpu_torch/csrc/fused_block_mvn.cu",
          "replaces": "src/bayesian_inference_tpu/ops/pallas_mvn.py:189",
@@ -986,7 +1040,7 @@ def main() -> int:
         {"name": "block_mvn", "route": "cuda",
          "source": "src/bayesian_inference_tpu_torch/csrc/tiny_mvn.cu",
          "replaces": "src/bayesian_inference_tpu/ops/pallas_mvn.py:90",
-         "launches": total["block_mvn"], **k4},
+         "launches": total["block_mvn"], **k4, "other_shapes": k4_other},
     ]}
     print(json.dumps(record))
     print(smi)

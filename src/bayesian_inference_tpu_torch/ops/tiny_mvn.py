@@ -3,8 +3,9 @@
 Counterpart of ``bayesian_inference_tpu.ops.pallas_mvn.block_mvn_loglike``
 (which reaches the Pallas kernel ``_mvn_kernel``), with the same arguments
 and result. On a CPU tensor it runs the plain version (the unrolled
-factorisation, or the dense path for blocks wider than ``MAX_NB``); on a CUDA
-tensor it launches ``csrc/tiny_mvn.cu`` or raises.
+factorisation, or, as the JAX package does, the dense path for blocks wider
+than ``DENSE_ABOVE``); on a CUDA tensor it launches ``csrc/tiny_mvn.cu``
+(blocks up to ``MAX_NB`` wide) or raises.
 
 The kernel returns both terms of the sweep, quad = |L^-1 dY|^2 and
 half_logdet = sum log diag L, so the Woodbury likelihood (ops/mvn.py) takes
@@ -22,13 +23,14 @@ from bayesian_inference_tpu_torch.ops.cholesky import tiny_mvn_terms
 from bayesian_inference_tpu_torch.ops.mvn import mvn_terms_dense
 
 KERNEL = NativeKernel("tiny_mvn.cu", {"tiny_mvn_f32": [P] * 4 + [I] * 2 + [P]})
-MAX_NB = 48
+MAX_NB = 64       # the widest block the CUDA kernel takes
+DENSE_ABOVE = 48  # the JAX package's block_mvn_loglike goes dense above this width
 
 
 def mvn_terms_plain(dY: torch.Tensor, C: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of the kernel: (quad, half_logdet) by the
-    unrolled factorisation, or by the dense path above ``MAX_NB``."""
-    if C.shape[-1] > MAX_NB:
+    unrolled factorisation, or by the dense path above ``DENSE_ABOVE``."""
+    if C.shape[-1] > DENSE_ABOVE:
         return mvn_terms_dense(dY, C)
     return tiny_mvn_terms(dY, C)
 

@@ -33,8 +33,12 @@ def _spd(B, n, seed=0):
     return A @ np.swapaxes(A, -1, -2) / n + 0.5 * np.eye(n)
 
 
-@pytest.mark.parametrize("B,n", [(1, 1), (3, 17), (300, 64)])
+@pytest.mark.parametrize("B,n", [(1, 1), (3, 17), (300, 64), (41, 64), (123, 64), (2091, 64), (5, 60), (41, 62)])
 def test_diag_chol_inv_kernel_matches_plain(device, B, n):
+    """K3 at the fit's batch sizes (posterior 41, polish 123, exploration
+    2,091) and at widths that are not 64, all identity-padded: n = 60 takes
+    the 16-byte loads (n % 4 == 0), n = 1, 17 and 62 the scalar ones. Within
+    f32 rounding of float64, zeros above the diagonal, bit-equal on repeat."""
     A64 = torch.tensor(_spd(B, n), device=device)
     A = A64.float()
     before = bc.KERNEL.launches
@@ -45,6 +49,31 @@ def test_diag_chol_inv_kernel_matches_plain(device, B, n):
     torch.testing.assert_close(L.double(), L64, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(Linv.double(), Linv64, rtol=1e-3, atol=1e-4)
     assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
+    assert torch.equal(torch.triu(Linv, 1), torch.zeros_like(Linv))
+    L2, Linv2 = bc.diag_chol_inv(A)
+    assert torch.equal(L, L2) and torch.equal(Linv, Linv2)
+
+
+def test_diag_chol_inv_kernel_is_the_same_at_every_batch_size(device):
+    """An instance's L and L^-1 do not depend on the batch it is launched in
+    (the fit's polish batch against its exploration batch): the same bits."""
+    A = torch.tensor(_spd(1000, 64, seed=3), device=device).float()
+    L, Linv = bc.diag_chol_inv(A)
+    L_small, Linv_small = bc.diag_chol_inv(A[:41].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(L[:41], L_small) and torch.equal(Linv[:41], Linv_small)
+
+
+def test_block_mvn_kernel_is_the_same_at_every_batch_size(device):
+    """An instance's quad and half-log-det do not depend on the batch it is
+    launched in (one analysis against the closure batch), at every tile
+    count the kernel is built for: the same bits."""
+    for nb in (13, 41, 64):
+        dY, C = (torch.tensor(x, device=device).float() for x in _capacitance(1500, nb))
+        quad, hld = tiny_mvn.mvn_terms(dY, C)
+        quad_s, hld_s = tiny_mvn.mvn_terms(dY[:50].contiguous(), C[:50].contiguous())
+        torch.cuda.synchronize()
+        assert torch.equal(quad[:50], quad_s) and torch.equal(hld[:50], hld_s)
 
 
 def test_diag_chol_inv_kernel_nan_for_non_spd(device):
@@ -178,8 +207,12 @@ def _capacitance(B, k, seed=7):
     return rng.normal(size=(B, k)), M
 
 
-@pytest.mark.parametrize("B,nb", [(1, 1), (50, 41), (1500, 41), (7, 48)])
+@pytest.mark.parametrize("B,nb", [(1, 1), (50, 41), (1500, 41), (7, 48), (1, 56), (50, 56), (1500, 56),
+                                  (1, 64), (50, 64), (1500, 64), (9, 13), (9, 30)])
 def test_block_mvn_kernel_matches_plain(device, B, nb):
+    """K4 at every tile count (nb up to 16, 32, 48, 64) and at the lowrank
+    batch sizes: within f32 rounding of the float64 plain version (the dense
+    path above 48, as in the JAX package), bit-equal on repeat."""
     dY64, C64 = (torch.tensor(x, device=device) for x in _capacitance(B, nb))
     dY, C = dY64.float(), C64.float()
     before = tiny_mvn.KERNEL.launches
@@ -195,13 +228,45 @@ def test_block_mvn_kernel_matches_plain(device, B, nb):
     assert torch.equal(ll2[0], ll)
 
 
-def test_block_mvn_kernel_nan_only_in_the_non_spd_instance(device):
-    dY, C = (torch.tensor(x, device=device).float() for x in _capacitance(6, 41))
+@pytest.mark.parametrize("nb", [41, 64])
+def test_block_mvn_kernel_nan_only_in_the_non_spd_instance(device, nb):
+    dY, C = (torch.tensor(x, device=device).float() for x in _capacitance(6, nb))
     C[2] = -C[2]
     ll = tiny_mvn.block_mvn_loglike(dY, C)
     torch.cuda.synchronize()
     assert torch.isnan(ll[2])
     assert torch.isfinite(ll[[0, 1, 3, 4, 5]]).all()
+
+
+@pytest.mark.parametrize("k", [41, 56])
+def test_woodbury_loglike_on_the_card_matches_float64(device, k):
+    """A lowrank likelihood with k PCs evaluates through K4 on the card (one
+    launch) and lies within the chip smoke's K4 bar of the float64 plain
+    version: per walker, the error over |quad_M| / 2 + |half_logdet_M| of the
+    capacitance term."""
+    import dataclasses
+
+    from bayesian_inference_tpu_torch.ops import mvn
+
+    rng = np.random.default_rng(k)
+    F, B = 300, 50
+    A = rng.normal(size=(F, F))
+    D = A @ A.T / F + 0.5 * np.eye(F)
+    U = rng.normal(size=(F, k)) * np.exp(-np.arange(k) / 10.0) * 0.2
+    z, v = rng.normal(size=(B, k)), rng.uniform(1e-3, 0.1, (B, k))
+    wn64 = mvn.build_woodbury(*(torch.tensor(x) for x in (D, U, rng.normal(size=F))))
+    wn = mvn.WoodburyNormal(**{f.name: getattr(wn64, f.name).float().to(device)
+                               for f in dataclasses.fields(wn64)})
+    before = tiny_mvn.KERNEL.launches
+    ll = mvn.woodbury_loglike(wn, torch.tensor(z, device=device).float(), torch.tensor(v, device=device).float())
+    torch.cuda.synchronize()
+    assert tiny_mvn.KERNEL.launches == before + 1
+    ll64 = mvn.woodbury_loglike(wn64, torch.tensor(z), torch.tensor(v))
+    r64 = wn64.b + torch.tensor(z) @ wn64.G
+    quad64, hld64 = tiny_mvn.mvn_terms_plain(r64, wn64.G + torch.diag_embed(1.0 / torch.tensor(v)))
+    scale = 0.5 * quad64.abs() + hld64.abs()
+    assert ll.shape == (B,) and bool(torch.isfinite(ll).all())
+    assert float(((ll.double().cpu() - ll64).abs() / scale).max()) <= 1e-4
 
 
 def test_lml_backward_on_the_card_raises_no_warning(device):
@@ -250,7 +315,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(device):
         tiny_mvn.block_mvn_loglike(dY, C)
     with pytest.raises(ValueError, match="contiguous"):
         tiny_mvn.block_mvn_loglike(dY.float(), C.float().transpose(-1, -2))
-    dY, C = (torch.tensor(x, device=device).float() for x in _capacitance(4, 49))
+    dY, C = (torch.tensor(x, device=device).float() for x in _capacitance(4, 65))
     with pytest.raises(ValueError, match="no CUDA kernel"):
         tiny_mvn.block_mvn_loglike(dY, C)
 

@@ -216,20 +216,20 @@ def _capacitance_operands(rng, lead, nb):
     return rng.normal(size=(*lead, nb)), C
 
 
-@pytest.mark.parametrize("nb", [5, 41, 49])
+@pytest.mark.parametrize("nb", [5, 41, 49, 56, 64])
 def test_block_mvn_plain_matches_jax(nb):
     """The plain version of kernel K4 against JAX's block_mvn_loglike running
-    its Pallas kernel in interpret mode (nb <= 48) and against its default
-    route, at rtol 1e-10 (float64); nb = 49 routes to the dense path on both
-    sides. Leading batch dimensions are kept."""
+    its Pallas kernel in interpret mode and against its default route, at
+    rtol 1e-10 (float64); above 48 (the widths the CUDA kernel took on in
+    its redesign) the default route is the dense path on both sides. Leading
+    batch dimensions are kept."""
     dY, C = _capacitance_operands(np.random.default_rng(nb), (2, 3), nb)
     ours = to_np(tiny_mvn.block_mvn_loglike(t64(dY), t64(C)))
     assert ours.shape == (2, 3)
     np.testing.assert_allclose(ours, to_np(tiny_mvn.block_mvn_plain(t64(dY), t64(C))), rtol=0)
     jdY, jC = jnp.asarray(dY), jnp.asarray(C)
     np.testing.assert_allclose(ours, np.asarray(jmvn.block_mvn_loglike(jdY, jC)), rtol=1e-10)
-    if nb <= tiny_mvn.MAX_NB:
-        np.testing.assert_allclose(ours, np.asarray(jmvn.block_mvn_loglike(jdY, jC, interpret=True)), rtol=1e-10)
+    np.testing.assert_allclose(ours, np.asarray(jmvn.block_mvn_loglike(jdY, jC, interpret=True)), rtol=1e-10)
     quad, half_logdet = tiny_mvn.mvn_terms(t64(dY), t64(C))
     np.testing.assert_allclose(to_np(-0.5 * quad - half_logdet), ours, rtol=1e-14)
 
@@ -241,11 +241,13 @@ def _woodbury_operands(seed, F=40, k=6, B=11):
     return D, rng.normal(size=(F, k)), rng.normal(size=F), rng.normal(size=(B, k)), rng.uniform(0.1, 2.0, (B, k))
 
 
-def test_woodbury_matches_jax_and_dense():
+@pytest.mark.parametrize("k", [6, 56])
+def test_woodbury_matches_jax_and_dense(k):
     """build_woodbury's fields against JAX's (rtol 1e-10), woodbury_loglike
     against JAX's and against the dense MVN of C = D + U diag(v) U^T
-    (rtol 1e-9, as tests/test_ops.py holds the JAX one)."""
-    D, U, d0, z, v = _woodbury_operands(21)
+    (rtol 1e-9, as tests/test_ops.py holds the JAX one); k = 56 PCs is a
+    capacitance matrix wider than 48, which the CUDA kernel now takes."""
+    D, U, d0, z, v = _woodbury_operands(21, k=k)
     twn = twood.build_woodbury(t64(D), t64(U), t64(d0))
     jwn = jwood.build_woodbury(jnp.asarray(D), jnp.asarray(U), jnp.asarray(d0))
     for name in ("b", "G", "c0", "half_logdet_D", "U", "d0", "L_D", "W"):
