@@ -118,6 +118,14 @@ TAU_RTOL, RHAT_ATOL = 1e-2, 1e-4
 #   hyperparameters: the repo's fit-parity bar (docs/fit_schedule_study.json).
 LML_TOL_NAT = 0.1
 ACCEPTANCE_RANGE = (0.05, 0.9)
+# - ``predict`` on the card (f32 GP predict and covariance) against the same
+#   call on the CPU in float64, from the same artifacts: central values as
+#   max |err| / max |value|, the covariance diagonal per entry relative. The
+#   f32 GP variance k** - k*^T K^-1 k* cancels (most at the training design
+#   points), and the truncation covariance adds to it. Measured on an H100:
+#   central 2.1e-7 / 1.4e-7, diagonal 1.3e-4 / 1.1e-4 (195 design points /
+#   100 posterior samples); the bars are under 10x those.
+PREDICT_TOL_CENTRAL, PREDICT_TOL_DIAG = 2e-6, 1e-3
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # FP32 outside the tensor cores, and HBM3. A kernel's bound is the larger of
@@ -330,15 +338,16 @@ def phase_k3(device, reps: int = 20) -> list[dict]:
     return results
 
 
-def mvn_buckets(W: int, device, dtype, seed: int = 1, k: int = N_PCS, n_points: int = 0):
+def mvn_buckets(W: int, device, dtype, seed: int = 1, k: int = N_PCS, n_points: int = 0, extra_widths=()):
     """Bucketed block-likelihood operands shaped like the production buckets
     ({8: 40, 16: 96, 24: 8} blocks, k PCs) and per-walker PC means/variances.
     With ``n_points``, each bucket's d0 is (n_points, n_obs_b, nb), one offset
-    table per point, and the W walkers are split evenly over the points."""
+    table per point, and the W walkers are split evenly over the points.
+    ``extra_widths``: blocks of these widths besides the production ones."""
     from bayesian_inference_tpu_torch.mcmc.likelihood import bucketize_blocks
 
     rng = np.random.default_rng(seed)
-    widths = [*rng.integers(1, 9, 40), *rng.integers(9, 17, 96), *rng.integers(17, 25, 8)]
+    widths = [*rng.integers(1, 9, 40), *rng.integers(9, 17, 96), *rng.integers(17, 25, 8), *extra_widths]
     colscale = np.exp(-np.arange(k) / 10.0)
     U = [rng.normal(size=(w, k)) * colscale * 0.2 for w in widths]
     D = []
@@ -449,6 +458,85 @@ def phase_k1_points(device, P: int = 30, Wh: int = 50, reps: int = 20) -> dict:
     return {"max_abs_err": max_abs, **timed(ms, plain_ms, b, shape=f"P={P} x Wh={Wh}, nb 8/16/24 x 40/96/8, k=41")}
 
 
+def phase_k1_widths(device, W: int = N_WALKERS // 2, reps: int = 50) -> tuple[dict, dict]:
+    """K1 at the widths JAX computes and the kernel once refused: the
+    production buckets beside one 56-wide bucket (one K1 launch for the
+    three narrow ones, the dense path for the wide one, as JAX goes dense
+    above 48), and the production buckets at k = 160 PCs (staged 128 at a
+    time), each against the float64 plain version. Returns (the k = 160
+    entry of the kernels record, the dense route's times)."""
+    from bayesian_inference_tpu_torch.ops import fused_mvn
+
+    buckets, z, v = mvn_buckets(W, device, torch.float32, extra_widths=(56,))
+    buckets64, z64, v64 = mvn_buckets(W, device, torch.float64, extra_widths=(56,))
+    check([b[0].shape[:2] for b in buckets] == [(40, 8), (96, 16), (8, 24), (1, 56)],
+          "K1 widths: unexpected bucket layout")
+    Us, Ds, d0s = zip(*buckets)
+    before = fused_mvn.KERNEL.launches
+    ll = fused_mvn.fused_block_mvn_loglike_buckets(Us, Ds, d0s, z, v)
+    torch.cuda.synchronize()
+    launches = fused_mvn.KERNEL.launches - before
+    ll64 = fused_mvn.fused_block_mvn_buckets_plain(*zip(*buckets64), z64, v64)
+    rel = float((ll.double() - ll64).abs().max()) / float(ll64.abs().max())
+    repeat = bool(torch.equal(ll, fused_mvn.fused_block_mvn_loglike_buckets(Us, Ds, d0s, z, v)))
+
+    def mixed():
+        return fused_mvn.fused_block_mvn_loglike_buckets(Us, Ds, d0s, z, v)
+
+    def narrow():
+        return fused_mvn.fused_block_mvn_loglike_buckets(Us[:3], Ds[:3], d0s[:3], z, v)
+
+    def dense():  # the 56-wide bucket alone: no launch, the dense path
+        return fused_mvn.fused_block_mvn_loglike_buckets(Us[3:], Ds[3:], d0s[3:], z, v)
+
+    mixed_ms, narrow_ms = time_pair(mixed, narrow, reps)
+    dense_ms = cuda_ms(dense, reps)
+    b_dense = k1_bound(buckets[3:], z, v)
+    print(f"K1 widths: production buckets + one nb=56 bucket, W={W}, k=41, f32: {launches} K1 launch for the call "
+          f"(the 56-wide bucket dense, as JAX above 48); max err / max|ll| vs float64 {rel:.3g} (tol {K1_TOL}); "
+          f"bit-equal on repeat: {repeat}; whole call {mixed_ms:.4f} ms, its three narrow buckets alone (one K1 "
+          f"launch) {narrow_ms:.4f} ms, the 56-wide bucket alone (dense, no kernel) {dense_ms:.4f} ms; dense "
+          f"{bound_text(dense_ms, b_dense)}", flush=True)
+    check(launches == 1, f"K1 widths: {launches} K1 launches for one call with a 56-wide bucket")
+    check(ll.shape == (W,) and bool(torch.isfinite(ll).all()), "K1 widths: non-finite or misshapen result")
+    check(rel <= K1_TOL, f"K1 widths: differs from the float64 plain path by {rel:.3g} > {K1_TOL}")
+    check(repeat, "K1 widths: repeated calls are not bit-equal")
+    dense_route = {"shape": f"W={W}, one 56-wide block, k=41", "ms": dense_ms, "bound_ms": b_dense["bound_ms"],
+                   "bound_by": b_dense["bound_by"], "whole_call_ms": mixed_ms, "narrow_buckets_ms": narrow_ms}
+
+    k = 160
+    buckets, z, v = mvn_buckets(W, device, torch.float32, k=k)
+    buckets64, z64, v64 = mvn_buckets(W, device, torch.float64, k=k)
+    Us, Ds, d0s = zip(*buckets)
+
+    def kernel():
+        return fused_mvn.fused_block_mvn_loglike_buckets(Us, Ds, d0s, z, v)
+
+    def plain():
+        return fused_mvn.fused_block_mvn_buckets_plain(Us, Ds, d0s, z, v)
+
+    before = fused_mvn.KERNEL.launches
+    ll = kernel()
+    torch.cuda.synchronize()
+    launches = fused_mvn.KERNEL.launches - before
+    ll_plain = plain()
+    ll64 = fused_mvn.fused_block_mvn_buckets_plain(*zip(*buckets64), z64, v64)
+    rel = float((ll.double() - ll64).abs().max()) / float(ll64.abs().max())
+    max_abs = float((ll - ll_plain).abs().max())
+    repeat = bool(torch.equal(ll, kernel()))
+    ms, plain_ms = time_pair(kernel, plain, reps)
+    b = k1_bound(buckets, z, v)
+    print(f"K1 fused_block_mvn W={W}, production buckets, k={k} (PCs staged 128 at a time), f32: {launches} launch; "
+          f"max abs err vs plain f32 {max_abs:.3g}; max err / max|ll| vs float64 {rel:.3g} (tol {K1_TOL}); "
+          f"bit-equal on repeat: {repeat}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; {bound_text(ms, b)}",
+          flush=True)
+    check(launches == 1, f"K1 k={k}: {launches} launches for one call")
+    check(ll.shape == (W,) and bool(torch.isfinite(ll).all()), f"K1 k={k}: non-finite or misshapen result")
+    check(rel <= K1_TOL, f"K1 k={k}: differs from the float64 plain path by {rel:.3g} > {K1_TOL}")
+    check(repeat, f"K1 k={k}: repeated launches are not bit-equal")
+    return {"max_abs_err": max_abs, **timed(ms, plain_ms, b, shape=f"W={W}, nb 8/16/24 x 40/96/8, k={k}")}, dense_route
+
+
 def capacitance_operands(B: int, device, dtype, seed: int = 4, k: int = N_PCS, F: int = 1644):
     """(r, M) shaped like the lowrank likelihood's capacitance solve:
     M = G + diag(1/v), G = W^T W of a (F, k) factor with decaying column
@@ -515,6 +603,35 @@ def phase_k4(device, reps: int = 50) -> list[dict]:
         check(repeat, "K4: repeated launches are not bit-equal")
         results.append({"max_abs_err": max_abs, **timed(ms, plain_ms, b, shape=f"B={B}, {n} x {n}")})
     return results
+
+
+def phase_k4_wide(device, B: int = 50, n: int = 72, reps: int = 50) -> dict:
+    """Capacitance matrices wider than K4 takes (72 PCs): on the card the
+    wrapper takes the dense path, as JAX does above 48, launching no kernel;
+    held against the float64 plain version with K4's bar. Returns the dense
+    route's times."""
+    from bayesian_inference_tpu_torch.ops import tiny_mvn
+
+    r, M = capacitance_operands(B, device, torch.float32, k=n)
+    r64, M64 = capacitance_operands(B, device, torch.float64, k=n)
+    before = tiny_mvn.KERNEL.launches
+    quad, half_logdet = tiny_mvn.mvn_terms(r, M)
+    torch.cuda.synchronize()
+    launches = tiny_mvn.KERNEL.launches - before
+    quad64, hld64 = tiny_mvn.mvn_terms_plain(r64, M64)
+    scale = 0.5 * quad64.abs() + hld64.abs()
+    ll = -0.5 * quad.double() - half_logdet.double()
+    rel = float(((ll - (-0.5 * quad64 - hld64)).abs() / scale).max())
+    wrel = float(((0.5 * quad.double() - half_logdet.double() - (0.5 * quad64 - hld64)).abs() / scale).max())
+    ms = cuda_ms(lambda: tiny_mvn.mvn_terms(r, M), reps)
+    b = bound(B * (n**3 / 3 + n * n), 4 * B * (n * (n + 1) / 2 + n + 2))
+    print(f"K4 widths: B={B} capacitance matrices of k={n} PCs, f32 on the card: {launches} K4 launches (dense, as "
+          f"JAX above 48); max per-instance err / (|quad|/2 + |half_logdet|) vs float64: loglike {rel:.3g}, Woodbury "
+          f"combination {wrel:.3g} (tol {K4_TOL}); dense route {ms:.4f} ms/call; {bound_text(ms, b)}", flush=True)
+    check(launches == 0, f"K4 widths: {launches} K4 launches at k={n}")
+    check(bool(torch.isfinite(quad).all() and torch.isfinite(half_logdet).all()), "K4 widths: non-finite terms")
+    check(rel <= K4_TOL and wrel <= K4_TOL, f"K4 widths: differs from float64 by {max(rel, wrel):.3g} > {K4_TOL}")
+    return {"shape": f"B={B}, {n} x {n}", "ms": ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
 
 
 def production_config(work_dir: Path, table_dir: Path, n_walkers: int, n_burn: int, n_steps: int,
@@ -810,6 +927,74 @@ def phase_closure(device, kernels, s: dict, mode: str, n_check: int = 100) -> di
     return launches
 
 
+def phase_predict(device, kernels, s: dict, n_posterior: int = 100) -> dict:
+    """``predict`` at production width from the slice's fitted artifacts (41
+    PCs over 3 groups, F = 1,644), merged over the groups, on the card: at the
+    195 training design points (the residual plots' call) and at 100
+    posterior samples from the slice's chain (the posterior-observable
+    plot's), each against the same call on the CPU in float64."""
+    from bayesian_inference_tpu_torch.models.emulator import predict
+
+    chain = s["chain"]
+    flat = chain.reshape(-1, chain.shape[-1])
+    posterior = flat[np.random.default_rng(0).choice(flat.shape[0], n_posterior, replace=False)]
+    kw = dict(emulation_group_results=s["artifacts"], observables=s["observables"])
+    out = {}
+    reset(kernels)
+    for name, theta in (("design", np.asarray(s["observables"]["Design"])), ("posterior", posterior)):
+        t = time.perf_counter()
+        pred = predict(theta, s["emu"], device=device, **kw)
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        ref = predict(theta, s["emu"], device="cpu", **kw)
+        cpu_s = time.perf_counter() - t
+        B, F = pred["central_value"].shape
+        central = float(np.abs(pred["central_value"] - ref["central_value"]).max() / np.abs(ref["central_value"]).max())
+        diag, diag64 = np.einsum("bff->bf", pred["cov"]), np.einsum("bff->bf", ref["cov"])
+        diag_rel = float((np.abs(diag - diag64) / diag64).max())
+        finite = bool(np.isfinite(pred["central_value"]).all() and np.isfinite(diag).all())
+        print(f"predict at {B} {name} points, merged over {len(s['artifacts'])} groups (F={F}), f32 on the card: "
+              f"{card_s:.3f} s wall (host float64 arrays out; covariance {pred['cov'].shape}); the same call on the CPU "
+              f"in float64 {cpu_s:.3f} s; central values max err / max|value| {central:.3g} (tol "
+              f"{PREDICT_TOL_CENTRAL}), covariance diagonal max rel err {diag_rel:.3g} (tol {PREDICT_TOL_DIAG}); "
+              f"finite: {finite}", flush=True)
+        check(pred["cov"].shape == (B, F, F) and F == 1644 and finite, f"predict {name}: misshapen or non-finite")
+        check(central <= PREDICT_TOL_CENTRAL, f"predict {name}: central values off float64 by {central:.3g}")
+        check(diag_rel <= PREDICT_TOL_DIAG, f"predict {name}: covariance diagonal off float64 by {diag_rel:.3g}")
+        out[name] = {"points": B, "card_s": card_s, "cpu_float64_s": cpu_s, "central_rel": central,
+                     "diag_rel": diag_rel}
+        del pred, ref
+    launches = counts(kernels)
+    print(f"predict kernel launches: {launches} (the GP predict and the covariance are plain PyTorch, as JAX "
+          "computes them outside any Pallas kernel)", flush=True)
+    return out
+
+
+def phase_steer_refusal(device) -> None:
+    """The steer on the card with a plot toggle on and write=False: refused at
+    construction (no matplotlib here, or write=False, whichever the
+    constructor checks first), before any stage and any output directory."""
+    import shutil
+
+    from bayesian_inference_tpu_torch.pipeline.steer import SteerAnalysis
+
+    work_dir = WORK_DIR / "steer_refusal"
+    shutil.rmtree(work_dir, ignore_errors=True)
+    config = steer_config(work_dir, WORK_DIR / "production_tables")
+    config["plot"]["mcmc"] = True
+    try:
+        SteerAnalysis(config=config, device=device, write=False)
+    except (RuntimeError, ValueError) as e:
+        refusal = f"{type(e).__name__}: {e}"
+    else:
+        raise AssertionError("steer refusal: a plot toggle with write=False on the card was not refused")
+    left = Path(config["output_dir"]).exists()
+    print(f"steer refusal: SteerAnalysis(config=<plot.mcmc on>, device='cuda', write=False) raised {refusal}; "
+          f"output directory left: {left}", flush=True)
+    check("plot toggles ['mcmc']" in refusal, f"steer refusal: the message does not name the toggle: {refusal}")
+    check(not left, "steer refusal: an output directory was left")
+
+
 class Interrupted(Exception):
     """Raised by the stand-in for a sampler chunk to cut a run short."""
 
@@ -1017,16 +1202,22 @@ def main() -> int:
     k1_wide = phase_k1(device, W=N_WALKERS)  # the half-ensemble width of a 200-walker run
     k1_points = phase_k1_points(device)
     k4, *k4_other = phase_k4(device)
+    k1_k160, k1_dense = phase_k1_widths(device)
+    k4_dense = phase_k4_wide(device)
     path_launches = []
     launches, reuse = phase_slice(device, kernels)
     path_launches.append(launches)
     path_launches.append(phase_lowrank(device, kernels, reuse))
     for mode in ("lowrank", "block"):
         path_launches.append(phase_closure(device, kernels, reuse, mode))
+    predict_times = phase_predict(device, kernels, reuse)
     path_launches.append(phase_steer(device, kernels))
+    phase_steer_refusal(device)
     total = {name: sum(p[name] for p in path_launches) for name in kernels}
     print(f"kernel launches over the five path runs (fit->sample, lowrank analysis, lowrank and block closure "
           f"batches, steer): {total}; whole script {time.perf_counter() - t_start:.1f} s", flush=True)
+    print("dense routes and predict (no kernel; dense as in JAX): "
+          + json.dumps({"k1_nb56": k1_dense, "k4_k72": k4_dense, "predict": predict_times}), flush=True)
 
     record = {"kernels": [
         {"name": "diag_chol_inv", "route": "cuda",
@@ -1036,7 +1227,7 @@ def main() -> int:
         {"name": "fused_block_mvn", "route": "cuda",
          "source": "src/bayesian_inference_tpu_torch/csrc/fused_block_mvn.cu",
          "replaces": "src/bayesian_inference_tpu/ops/pallas_mvn.py:189",
-         "launches": total["fused_block_mvn"], **k1, "other_shapes": [k1_wide, k1_points]},
+         "launches": total["fused_block_mvn"], **k1, "other_shapes": [k1_wide, k1_points, k1_k160]},
         {"name": "block_mvn", "route": "cuda",
          "source": "src/bayesian_inference_tpu_torch/csrc/tiny_mvn.cu",
          "replaces": "src/bayesian_inference_tpu/ops/pallas_mvn.py:90",

@@ -48,8 +48,8 @@ EDITS = [
      "\n  const unsigned long long t_start = gtime();"),
     ("  copy_async_wait();\n  __syncthreads();\n",
      "  if (threadIdx.x == 0) { g_t[0][blockIdx.x] = t_start; g_t[1][blockIdx.x] = gtime(); }\n"),
-    ("    if (w < W) assemble_in_shared(D_s, d0w, U_s, zT, vT, tp, C_s, b_s, tw, t, nb, k, part, kThreads / tw);\n"
-     "    __syncthreads();\n",
+    ("      if (live) assemble_in_shared(D_s, d0w, U_s, zT, vT, tp, C_s, b_s, tw, t, nb, k, true, part, "
+     "kThreads / tw);\n    }\n    __syncthreads();\n",
      "    if (threadIdx.x == 0) g_t[3][blockIdx.x] = gtime();\n"),
     ("    factor_in_shared(C_s, b_s, tw, t, nb, quad, half_logdet);\n  }\n",
      "  atomicMax(&g_t[2][blockIdx.x], gtime());\n"),

@@ -46,6 +46,15 @@
 //   the log-determinant. Walker tile 32, so that the shared memory of one
 //   launch stays small enough for several blocks per SM; the block's two
 //   warps share the assembly's tiles (one barrier), then one factorises.
+// - Any number of PCs k: for k > kChunk a second instance of the kernel
+//   stages U's columns and the tile's z and v kChunk PCs at a time, and the
+//   assembly runs over the chunks in order, carrying its partial sums
+//   (registers for nb <= 16, the shared triangle above), in the same order
+//   over q as one pass; every thread stays for the barriers of the later
+//   chunks' staging. k <= kChunk runs the one-pass instance: each copy reads
+//   contiguous sources and the walkers past W leave before the assembly (on
+//   an H100 the chunked form's index arithmetic and idle threads cost 10 %
+//   at k = 41).
 // - The launch covers every bucket: a small table maps each thread block to
 //   its bucket, block and walker tile (heaviest buckets first). A second
 //   kernel sums each walker's (bucket, block) terms in a fixed order: no
@@ -61,7 +70,7 @@ namespace {
 constexpr int kThreads = 64;      // threads per block, the walker tile for nb <= 16
 constexpr int kTileShared = 32;   // walker tile for nb > 16
 constexpr int kMaxNb = 48;
-constexpr int kMaxK = 128;
+constexpr int kChunk = 128;       // PCs staged at a time
 constexpr int kMaxBuckets = 8;
 
 struct Bucket {
@@ -83,10 +92,12 @@ __host__ __device__ inline int padded(int nb) { return (nb + 7) & ~7; }
 __host__ __device__ inline int walker_tile(int nb) { return nb <= 16 ? kThreads : kTileShared; }
 __host__ __device__ inline int tri(int n) { return n * (n + 1) / 2; }
 
-// Shared floats one thread block of a bucket of width nb uses.
-__host__ inline size_t shared_floats(int nb, int k) {
+__host__ __device__ inline int first_chunk(int k) { return k < kChunk ? k : kChunk; }
+
+// Shared floats one thread block of a bucket of width nb uses, staging kc PCs at a time.
+__host__ inline size_t shared_floats(int nb, int kc) {
   const int tw = walker_tile(nb);
-  size_t n = static_cast<size_t>(k) * padded(nb) + 2 * static_cast<size_t>(k) * (tw + 1) + nb * nb;
+  size_t n = static_cast<size_t>(kc) * padded(nb) + 2 * static_cast<size_t>(kc) * (tw + 1) + nb * nb;
   if (nb > 16) n += static_cast<size_t>(tri(nb) + nb) * tw;
   return n;
 }
@@ -102,29 +113,65 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src) {
 
 __device__ __forceinline__ void copy_async_wait() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
+// What one thread block stages: its observable block's U (nb x k, row-major
+// in device memory) and its walker tile's z and v (k per walker), into
+// U_s [q][row] (pitch nbp) and zT, vT [q][walker] (pitch tp), kc PCs at a
+// time. Walkers of the tile at or past n_walkers stage zeros.
+struct Staging {
+  const float* Uo;
+  const float* zt;
+  const float* vt;
+  float* U_s;
+  float* zT;
+  float* vT;
+  int nb, nbp, k, tw, tp, n_walkers;
+
+  // Copies PCs [q0, q0 + kc) in flight (cp.async); the caller waits and syncs.
+  // Whole: all k PCs (q0 = 0, kc = k), each source contiguous.
+  template <bool Whole>
+  __device__ __forceinline__ void chunk(int q0, int kc) const {
+    for (int e = threadIdx.x; e < nb * kc; e += kThreads) {
+      const float* src = Whole ? Uo + e : Uo + static_cast<size_t>(e / kc) * k + q0 + e % kc;
+      copy_async(U_s + (e % kc) * nbp + e / kc, src);
+    }
+    const int n_in = (n_walkers < tw ? n_walkers : tw) * kc;
+    for (int e = threadIdx.x; e < tw * kc; e += kThreads) {
+      const int w = e / kc, q = e % kc;
+      float* zd = zT + q * tp + w;
+      float* vd = vT + q * tp + w;
+      if (e < n_in) {
+        const size_t at = Whole ? e : static_cast<size_t>(w) * k + q0 + q;
+        copy_async(zd, zt + at);
+        copy_async(vd, vt + at);
+      } else {
+        *zd = 0.f;
+        *vd = 0.f;
+      }
+    }
+  }
+
+  // Stages the next chunk once every thread is done with the current one.
+  __device__ __forceinline__ void next_chunk(int q0, int kc) const {
+    __syncthreads();
+    chunk<false>(q0, kc);
+    copy_async_wait();
+    __syncthreads();
+  }
+};
+
 // Entry (f, g), g <= f, of a thread's packed lower triangle in shared memory
 // ([entry][walker], pitch tw); rows at or past nb read as the identity.
 __device__ __forceinline__ float entry(const float* C_s, int f, int g, int nb, int tw, int t) {
   return f < nb ? C_s[(tri(f) + g) * tw + t] : (f == g ? 1.f : 0.f);
 }
 
-// nb <= NB (8 or 16): the pair's triangle and residual in registers. Do is the
-// block's D in shared memory.
+// Adds the kc staged PCs' terms to a register triangle C and residual b.
 template <int NB>
-__device__ __forceinline__ void pair_in_registers(const float* __restrict__ Do, const float* __restrict__ d0w,
-                                                  const float* U_s, const float* zT, const float* vT, int tp,
-                                                  int t, int nb, int k, float& quad, float& half_logdet) {
-  float C[NB * (NB + 1) / 2];
-  float b[NB];
-#pragma unroll
-  for (int f = 0; f < NB; ++f) {
-    b[f] = f < nb ? d0w[f] : 0.f;
-#pragma unroll
-    for (int g = 0; g <= f; ++g) C[tri(f) + g] = f < nb ? Do[f * nb + g] : (f == g ? 1.f : 0.f);
-  }
-
+__device__ __forceinline__ void accumulate_in_registers(float (&C)[NB * (NB + 1) / 2], float (&b)[NB],
+                                                        const float* U_s, const float* zT, const float* vT, int tp,
+                                                        int t, int kc) {
 #pragma unroll 1
-  for (int q = 0; q < k; ++q) {
+  for (int q = 0; q < kc; ++q) {
     const float zq = zT[q * tp + t];
     const float vq = vT[q * tp + t];
     float u[NB];
@@ -145,6 +192,37 @@ __device__ __forceinline__ void pair_in_registers(const float* __restrict__ Do, 
       for (int g = 0; g <= f; ++g) C[tri(f) + g] = fmaf(a, u[g], C[tri(f) + g]);
     }
   }
+}
+
+// nb <= NB (8 or 16): the pair's triangle and residual in registers. Do is the
+// block's D in shared memory; the first chunk of PCs is staged. Unchunked
+// (k <= kChunk), only live threads (a walker below W) call it. Chunked, every
+// thread of the block calls it, since the later chunks' staging has barriers,
+// and only a live one computes and returns its terms.
+template <int NB, bool Chunked>
+__device__ __forceinline__ void pair_in_registers(const float* __restrict__ Do, const float* __restrict__ d0w,
+                                                  const Staging& st, int t, int nb, bool live,
+                                                  float& quad, float& half_logdet) {
+  float C[NB * (NB + 1) / 2];
+  float b[NB];
+#pragma unroll
+  for (int f = 0; f < NB; ++f) {
+    b[f] = live && f < nb ? d0w[f] : 0.f;
+#pragma unroll
+    for (int g = 0; g <= f; ++g) C[tri(f) + g] = f < nb ? Do[f * nb + g] : (f == g ? 1.f : 0.f);
+  }
+
+  if constexpr (Chunked) {
+#pragma unroll 1
+    for (int q0 = 0; q0 < st.k; q0 += kChunk) {
+      const int kc = first_chunk(st.k - q0);
+      if (q0 > 0) st.next_chunk(q0, kc);
+      if (live) accumulate_in_registers<NB>(C, b, st.U_s, st.zT, st.vT, st.tp, t, kc);
+    }
+  } else {
+    accumulate_in_registers<NB>(C, b, st.U_s, st.zT, st.vT, st.tp, t, st.k);
+  }
+  if (!live) return;
 
   // Right-looking Cholesky fused with the forward solve and the log-det.
 #pragma unroll
@@ -170,12 +248,14 @@ __device__ __forceinline__ void pair_in_registers(const float* __restrict__ Do, 
 }
 
 // 16 < nb <= 48: the pair's triangle and residual into shared memory,
-// [entry][walker] with pitch tw. The 8 x 8 tiles are dealt out over ``parts``
-// threads of the same walker; this one computes those numbered ``part``.
+// [entry][walker] with pitch tw, over the kc PCs staged. The 8 x 8 tiles are
+// dealt out over ``parts`` threads of the same walker; this one computes
+// those numbered ``part``. The first chunk starts from D and d0, a later one
+// from the partial sums this thread stored for the same tiles.
 __device__ __forceinline__ void assemble_in_shared(const float* __restrict__ Do, const float* __restrict__ d0w,
                                                    const float* U_s, const float* zT, const float* vT, int tp,
-                                                   float* C_s, float* b_s, int tw, int t, int nb, int k,
-                                                   int part, int parts) {
+                                                   float* C_s, float* b_s, int tw, int t, int nb, int kc,
+                                                   bool first, int part, int parts) {
   const int nbp = padded(nb);
   const int tiles = nbp / 8;
   int n = 0;
@@ -190,15 +270,15 @@ __device__ __forceinline__ void assemble_in_shared(const float* __restrict__ Do,
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int f = 8 * F + i;
-        r[i] = diag && f < nb ? d0w[f] : 0.f;
+        r[i] = diag && f < nb ? (first ? d0w[f] : b_s[f * tw + t]) : 0.f;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int g = 8 * G + j;
-          acc[i][j] = f < nb && g <= f ? Do[f * nb + g] : 0.f;
+          acc[i][j] = f < nb && g <= f ? (first ? Do[f * nb + g] : C_s[(tri(f) + g) * tw + t]) : 0.f;
         }
       }
 #pragma unroll 1
-      for (int q = 0; q < k; ++q) {
+      for (int q = 0; q < kc; ++q) {
         const float vq = vT[q * tp + t];
         const float4* rows = reinterpret_cast<const float4*>(U_s + q * nbp + 8 * F);
         const float4* cols = reinterpret_cast<const float4*>(U_s + q * nbp + 8 * G);
@@ -351,6 +431,7 @@ __device__ __forceinline__ void factor_in_shared(float* C_s, float* b_s, int tw,
   }
 }
 
+template <bool Chunked>
 __global__ void __launch_bounds__(kThreads)
 fused_block_mvn_buckets_kernel(const Buckets buckets, const float* __restrict__ z, const float* __restrict__ v,
                                float* __restrict__ ll_blk, int k, int W, int Wh) {
@@ -363,56 +444,55 @@ fused_block_mvn_buckets_kernel(const Buckets buckets, const float* __restrict__ 
   const int nb = bk.nb, nbp = padded(nb);
   const int tw = walker_tile(nb), tp = tw + 1;
   const int w0 = (local % bk.tiles) * tw;
+  const int kc0 = first_chunk(k);
 
-  float* U_s = smem;             // k x nbp, [q][row], rows >= nb zero
-  float* zT = U_s + k * nbp;     // k x tp, [q][walker]
-  float* vT = zT + k * tp;
-  float* D_s = vT + k * tp;      // nb x nb
+  float* U_s = smem;             // kc0 x nbp, [q][row], rows >= nb zero
+  float* zT = U_s + kc0 * nbp;   // kc0 x tp, [q][walker]
+  float* vT = zT + kc0 * tp;
+  float* D_s = vT + kc0 * tp;    // nb x nb
   float* C_s = D_s + nb * nb;    // nb > 16 only: tri(nb) x tw
   float* b_s = C_s + tri(nb) * tw;
 
   // Staging: every copy of the block in flight at once (cp.async), since one
   // round trip to device memory at a time costs microseconds under load.
-  const float* Uo = bk.U + static_cast<size_t>(o) * nb * k;
+  const Staging st{bk.U + static_cast<size_t>(o) * nb * k, z + static_cast<size_t>(w0) * k,
+                   v + static_cast<size_t>(w0) * k, U_s, zT, vT, nb, nbp, k, tw, tp, W - w0};
   const float* Do = bk.D + static_cast<size_t>(o) * nb * nb;
-  for (int e = threadIdx.x; e < nb * k; e += kThreads) copy_async(U_s + (e % k) * nbp + e / k, Uo + e);
   for (int e = threadIdx.x; e < nb * nb; e += kThreads) copy_async(D_s + e, Do + e);
-  for (int e = threadIdx.x; e < k * (nbp - nb); e += kThreads) {
+  for (int e = threadIdx.x; e < kc0 * (nbp - nb); e += kThreads) {
     U_s[(e / (nbp - nb)) * nbp + nb + e % (nbp - nb)] = 0.f;
   }
-  const float* zt = z + static_cast<size_t>(w0) * k;
-  const float* vt = v + static_cast<size_t>(w0) * k;
-  const int n_in = (W - w0 < tw ? W - w0 : tw) * k;  // the tile's walkers past W stage zeros
-  for (int e = threadIdx.x; e < tw * k; e += kThreads) {
-    float* zd = zT + (e % k) * tp + e / k;
-    float* vd = vT + (e % k) * tp + e / k;
-    if (e < n_in) {
-      copy_async(zd, zt + e);
-      copy_async(vd, vt + e);
-    } else {
-      *zd = 0.f;
-      *vd = 0.f;
-    }
-  }
+  st.chunk<!Chunked>(0, kc0);
   copy_async_wait();
   __syncthreads();
 
   const int t = threadIdx.x % tw;    // the walker's lane in the tile
   const int part = threadIdx.x / tw;  // nb > 16: which share of the assembly
   const int w = w0 + t;
+  const bool live = w < W;
   const float* d0w = bk.d0 + (static_cast<size_t>(w / Wh) * bk.n_obs + o) * nb;
   float quad = 0.f, half_logdet = 0.f;
   if (nb <= 16) {
-    if (w >= W) return;  // no block-wide barrier below this point
+    if (!Chunked && !live) return;  // no block-wide barrier below this point
     if (nb <= 8) {
-      pair_in_registers<8>(D_s, d0w, U_s, zT, vT, tp, t, nb, k, quad, half_logdet);
+      pair_in_registers<8, Chunked>(D_s, d0w, st, t, nb, live, quad, half_logdet);
     } else {
-      pair_in_registers<16>(D_s, d0w, U_s, zT, vT, tp, t, nb, k, quad, half_logdet);
+      pair_in_registers<16, Chunked>(D_s, d0w, st, t, nb, live, quad, half_logdet);
     }
+    if (!live) return;
   } else {
-    if (w < W) assemble_in_shared(D_s, d0w, U_s, zT, vT, tp, C_s, b_s, tw, t, nb, k, part, kThreads / tw);
+    if constexpr (Chunked) {
+#pragma unroll 1
+      for (int q0 = 0; q0 < k; q0 += kChunk) {
+        const int kc = first_chunk(k - q0);
+        if (q0 > 0) st.next_chunk(q0, kc);
+        if (live) assemble_in_shared(D_s, d0w, U_s, zT, vT, tp, C_s, b_s, tw, t, nb, kc, q0 == 0, part, kThreads / tw);
+      }
+    } else {
+      if (live) assemble_in_shared(D_s, d0w, U_s, zT, vT, tp, C_s, b_s, tw, t, nb, k, true, part, kThreads / tw);
+    }
     __syncthreads();
-    if (part != 0 || w >= W) return;
+    if (part != 0 || !live) return;
     factor_in_shared(C_s, b_s, tw, t, nb, quad, half_logdet);
   }
   ll_blk[static_cast<size_t>(bk.obs_offset + o) * W + w] = -0.5f * quad - half_logdet;
@@ -438,7 +518,7 @@ extern "C" int fused_block_mvn_buckets_f32(int n_buckets, const void* const* U, 
                                            const void* const* d0, const int* n_obs, const int* nb,
                                            const float* z, const float* v, float* ll_blk, float* out,
                                            int k, int W, int Wh, void* stream) {
-  if (n_buckets < 1 || n_buckets > kMaxBuckets || k < 1 || k > kMaxK || W < 1 || Wh < 1 || W % Wh != 0) {
+  if (n_buckets < 1 || n_buckets > kMaxBuckets || k < 1 || W < 1 || Wh < 1 || W % Wh != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int offsets[kMaxBuckets];
@@ -448,7 +528,7 @@ extern "C" int fused_block_mvn_buckets_f32(int n_buckets, const void* const* U, 
     if (nb[i] < 1 || nb[i] > kMaxNb || n_obs[i] < 1) return static_cast<int>(cudaErrorInvalidValue);
     offsets[i] = total_obs;
     total_obs += n_obs[i];
-    const size_t need = sizeof(float) * shared_floats(nb[i], k);
+    const size_t need = sizeof(float) * shared_floats(nb[i], first_chunk(k));
     if (need > smem) smem = need;
   }
   // Launch order: the widest (slowest) buckets first, so they do not trail.
@@ -464,16 +544,23 @@ extern "C" int fused_block_mvn_buckets_f32(int n_buckets, const void* const* U, 
     blocks += static_cast<long long>(n_obs[i]) * tiles;
   }
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  static size_t smem_allowed = 48 * 1024;
-  if (smem > smem_allowed) {
-    cudaError_t err = cudaFuncSetAttribute(fused_block_mvn_buckets_kernel,
+  const bool chunked = k > kChunk;
+  static size_t smem_allowed[2] = {48 * 1024, 48 * 1024};
+  if (smem > smem_allowed[chunked]) {
+    cudaError_t err = cudaFuncSetAttribute(chunked ? fused_block_mvn_buckets_kernel<true>
+                                                   : fused_block_mvn_buckets_kernel<false>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    smem_allowed = smem;
+    smem_allowed[chunked] = smem;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  fused_block_mvn_buckets_kernel<<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(table, z, v, ll_blk, k, W,
-                                                                                       Wh);
+  if (chunked) {
+    fused_block_mvn_buckets_kernel<true><<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(table, z, v, ll_blk,
+                                                                                              k, W, Wh);
+  } else {
+    fused_block_mvn_buckets_kernel<false><<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(table, z, v, ll_blk,
+                                                                                               k, W, Wh);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   sum_over_blocks_kernel<<<(W + 127) / 128, 128, 0, s>>>(ll_blk, out, total_obs, W);

@@ -25,6 +25,7 @@ launch (either mode).
 from __future__ import annotations
 
 import dataclasses
+import logging
 from dataclasses import dataclass
 from typing import Any, Sequence
 
@@ -33,9 +34,12 @@ import torch
 
 from bayesian_inference_tpu_torch.models import emulator as emulator_mod
 from bayesian_inference_tpu_torch.models.gp import GPPosterior, predict_all_shared
+from bayesian_inference_tpu_torch.ops import fused_mvn, tiny_mvn
 from bayesian_inference_tpu_torch.ops.fused_mvn import fused_block_mvn_loglike_buckets
 from bayesian_inference_tpu_torch.ops.gram import KernelConfig
 from bayesian_inference_tpu_torch.ops.mvn import WoodburyNormal, build_woodbury, woodbury_loglike
+
+logger = logging.getLogger(__name__)
 
 MODES = ("block", "lowrank")
 
@@ -294,6 +298,13 @@ def build_likelihood(
         D_rows.append(sigma_group[gname][grp_slice, grp_slice] + np.diag(y_err[g_slice] ** 2))
         d0_rows.append(m0_group[gname][grp_slice] - y[g_slice])
     U_bkts, D_bkts, d0_bkts = bucketize_blocks(U_rows, D_rows, d0_rows)
+    dense = [(u.shape[1], u.shape[0]) for u in U_bkts if u.shape[1] > fused_mvn.MAX_NB]
+    if mode == "block" and dense:
+        logger.info(f"block likelihood: buckets (width, blocks) {dense} are wider than {fused_mvn.MAX_NB} and take "
+                    "the dense path, as in the JAX package; the other buckets take one fused-kernel launch")
+    if mode == "lowrank" and k_total > tiny_mvn.MAX_NB:
+        logger.info(f"lowrank likelihood: {k_total} PCs > {tiny_mvn.MAX_NB}; the capacitance term takes the dense "
+                    "path, as in the JAX package")
 
     # Lowrank mode: the global (F, k) factor, the dense constant covariance
     # (data errors + every group's full truncation covariance at its rows and

@@ -1,5 +1,6 @@
-"""Chain diagnostics: emcee's FFT-based integrated autocorrelation time with
-Sokal windowing, and split-chain R-hat.
+"""Posterior statistics and chain diagnostics: credible intervals, the MAP
+estimate, emcee's FFT-based integrated autocorrelation time with Sokal
+windowing (per walker too), and split-chain R-hat.
 
 Host part carried over from ``bayesian_inference_tpu.mcmc.stats`` (numpy and
 scipy). The device part (``device_mean_power``, ``device_split_rhat``,
@@ -17,6 +18,34 @@ import numpy.typing as npt
 import torch
 
 
+def credible_interval(samples: npt.NDArray, confidence: float = 0.9, interval_type: str = "quantile"):
+    """Credible interval of a 1-D sample array: 'hpd' (minimum width) or 'quantile'."""
+    samples = np.asarray(samples)
+    if interval_type == "hpd":
+        nci = int((1 - confidence) * samples.size)
+        argp = np.argpartition(samples, [nci, samples.size - nci])
+        lows = np.sort(samples[argp[:nci]])
+        highs = np.sort(samples[argp[-nci:]])
+        i = np.argmin(highs - lows)
+        return lows[i], highs[i]
+    if interval_type == "quantile":
+        lo = (1 - confidence) / 2
+        return tuple(np.quantile(samples, [lo, 1 - lo]))
+    raise ValueError(f"Unknown interval_type {interval_type}")
+
+
+def map_parameters(posterior: npt.NDArray, method: str = "quantile") -> npt.NDArray:
+    """MAP estimate: mean of samples inside a narrow central quantile band, per dim."""
+    if method != "quantile":
+        raise ValueError(f"Unknown method {method}")
+    posterior = np.asarray(posterior)
+    q = 0.01
+    lo = np.quantile(posterior, 0.5 - q / 2, axis=0)
+    hi = np.quantile(posterior, 0.5 + q / 2, axis=0)
+    mask = (posterior >= lo) & (posterior <= hi)
+    return np.array([posterior[mask[:, i], i].mean() for i in range(posterior.shape[1])])
+
+
 class AutocorrError(Exception):
     """Chain too short to reliably estimate the autocorrelation time."""
 
@@ -26,6 +55,15 @@ def _next_pow_two(n: int) -> int:
     while i < n:
         i <<= 1
     return i
+
+
+def autocorr_function_1d(x: npt.NDArray) -> npt.NDArray:
+    """Normalized autocorrelation function of a 1-D series via FFT."""
+    x = np.atleast_1d(np.asarray(x, float))
+    n = _next_pow_two(len(x))
+    f = np.fft.fft(x - np.mean(x), n=2 * n)
+    acf = np.fft.ifft(f * np.conjugate(f))[: len(x)].real
+    return acf / acf[0]
 
 
 def _auto_window(taus: npt.NDArray, c: float) -> int:
@@ -174,6 +212,26 @@ def integrated_time_from_power(
     return tau, tol * tau <= n_t
 
 
+def tau_vs_length_from_power(
+    power: npt.NDArray, nfft: int, n_t: int, lengths, c: float = 5.0, out_dtype=np.float64
+) -> npt.NDArray:
+    """The tau-vs-chain-length convergence curve from one full-chain
+    walker-averaged power spectrum (``device_mean_power``): one inverse
+    transform, then Sokal's window per length with the searchable lag range
+    capped at that length. The last point is the full-chain estimate; earlier
+    points differ from re-estimating every chain prefix only by that
+    estimator's extra noise. Returns (len(lengths), n_d)."""
+    taus_all = _taus_from_power(np.asarray(power)[:, None, :], nfft, n_t, out_dtype)[:, 0, :]
+    n_d = taus_all.shape[1]
+    lengths = np.asarray(lengths, int)
+    out = np.empty((len(lengths), n_d))
+    for i, n in enumerate(lengths):
+        L = min(int(n), n_t)
+        for d in range(n_d):
+            out[i, d] = taus_all[_auto_window(taus_all[:L, d], c), d]
+    return out
+
+
 def integrated_time_batched(chain: npt.NDArray, c: float = 5.0, tol: float = 50.0) -> tuple[npt.NDArray, npt.NDArray]:
     """Integrated autocorrelation time of a batch of independent chains.
 
@@ -196,6 +254,46 @@ def integrated_time_batched(chain: npt.NDArray, c: float = 5.0, tol: float = 50.
         m = np.arange(n_t)[:, None] < c * flat
         win = np.where(m.any(axis=0), np.argmin(m, axis=0), n_t - 1)
     tau = flat[win, np.arange(flat.shape[1])].reshape(P, n_d)
+    return tau, tol * tau <= n_t
+
+
+def integrated_time_per_walker(chain: npt.NDArray, c: float = 5.0, tol: float = 50.0) -> tuple[npt.NDArray, npt.NDArray]:
+    """Per-walker integrated autocorrelation time (reference plot_mcmc.py:179-204,
+    which loops emcee's estimator over single-walker chains): one batched FFT
+    over every (walker, parameter) series, then Sokal's window per series (no
+    walker average).
+
+    Returns (tau, reliable), both (n_walkers, n_dim); ``reliable`` is False
+    where the chain is shorter than ``tol`` tau.
+    """
+    from scipy import fft as sfft
+
+    chain = np.asarray(chain)
+    if not np.issubdtype(chain.dtype, np.floating):
+        chain = chain.astype(np.float64)
+    if chain.ndim == 2:
+        chain = chain[:, :, None]
+    n_t, n_w, n_d = chain.shape
+    x = (chain - chain.mean(axis=0)).reshape(n_t, n_w * n_d)
+    workers = os.cpu_count() or 1
+
+    def taus_and_windows(L: int):
+        nfft = sfft.next_fast_len(n_t + L - 1, real=True)
+        f = sfft.rfft(x, n=nfft, axis=0, workers=workers)
+        np.multiply(f, np.conjugate(f), out=f)
+        acf = sfft.irfft(f, n=nfft, axis=0, workers=workers)[:L]
+        acf0 = acf[0]
+        acf = acf / np.where(acf0 == 0.0, 1.0, acf0)
+        taus_all = 2.0 * np.cumsum(acf.astype(np.float64), axis=0) - 1.0  # (L, series)
+        m = np.arange(L)[:, None] < c * taus_all
+        return taus_all, np.where(m.any(axis=0), np.argmin(m, axis=0), L - 1)
+
+    L = _acf_lag_cap(n_t)
+    taus_all, win = taus_and_windows(L)
+    if L < n_t and np.any(win == 0):
+        # some walker's window lies beyond the lag cap: exact full-length redo
+        taus_all, win = taus_and_windows(n_t)
+    tau = taus_all[win, np.arange(taus_all.shape[1])].reshape(n_w, n_d)
     return tau, tol * tau <= n_t
 
 

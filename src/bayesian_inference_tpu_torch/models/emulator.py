@@ -1,4 +1,4 @@
-"""Emulator stack: per-group PCA + GP fit, persistence, group-merged layout.
+"""Emulator stack: per-group PCA + GP fit, persistence, group-merged prediction.
 
 Port of ``bayesian_inference_tpu.models.emulator``. Each emulation group
 (disjoint observable subset) gets its own scaler+PCA and one GP per retained
@@ -6,6 +6,11 @@ principal component. Artifacts are the same plain dicts of numpy arrays,
 pickled to ``emulation_group_<name>.pkl``, so the two packages read each
 other's fits. Functions that would read ``observables.h5`` also take the
 already-read observables dict.
+
+Merged predictions follow the reference's convention: central values are
+inserted at the globally sorted feature slices, and the covariance keeps
+only the per-observable diagonal blocks (the reference's
+SortEmulationGroupObservables.convert, emulation.py:346-406).
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import torch
 from bayesian_inference_tpu_torch.io import observables as obs_io
 from bayesian_inference_tpu_torch.models import gp_fit
 from bayesian_inference_tpu_torch.models import pca as pca_mod
-from bayesian_inference_tpu_torch.models.gp import GPPosterior
+from bayesian_inference_tpu_torch.models.gp import GPPosterior, predict_all_shared
 from bayesian_inference_tpu_torch.ops.gram import KernelConfig, KernelParams
 from bayesian_inference_tpu_torch.pipeline.configs import EmulationConfig, EmulationGroupConfig
 
@@ -131,6 +136,52 @@ def _specs_compatible(a: gp_fit.GPFitSpec, b: gp_fit.GPFitSpec) -> bool:
     )
 
 
+def _fit_batch(
+    group_configs: dict[str, EmulationGroupConfig], preps: dict[str, dict[str, Any]], seed: int, device
+) -> dict[str, dict[str, Any]]:
+    """One fit of the PCs of the groups in ``preps`` (all of the same fit
+    settings) on ``device``: float64 on the CPU, float32 on CUDA, where the
+    fit's blocked Cholesky runs K3. Returns {group name: artifact}."""
+    dtype = default_dtype(device)
+    names = list(preps)
+    Y_all = np.concatenate([preps[n]["Y_pca_truncated"] for n in names], axis=1)
+    design = torch.as_tensor(preps[names[0]]["design"], dtype=dtype, device=device)
+    Y_t = torch.as_tensor(Y_all, dtype=dtype, device=device)
+    spec = preps[names[0]]["spec"]
+    logger.info(
+        f"GP fit: {Y_all.shape[1]} PCs across {len(names)} groups x "
+        f"{spec.n_restarts + 1} restarts (design: {tuple(design.shape)})..."
+    )
+    posts = gp_fit.fit_gps(spec, design, Y_t, generator=torch.Generator(device=device).manual_seed(seed))
+    artifacts: dict[str, dict[str, Any]] = {}
+    offset = 0
+    for n in names:
+        k = preps[n]["n_pc"]
+        artifacts[n] = _artifact_from_fit(group_configs[n], preps[n], _host(posts, slice(offset, offset + k)))
+        offset += k
+    return artifacts
+
+
+def fit_emulator_group(
+    config: EmulationGroupConfig,
+    seed: int = 0,
+    n_opt_iters: int = 60,
+    device="cuda",
+    observables: dict[str, Any] | None = None,
+) -> dict[str, Any]:
+    """PCA + GP fit of one emulation group on ``device``; returns its artifact
+    (nothing is written), or {} when the output file already exists and
+    force_retrain is False. ``observables``: the already-read observables
+    dict (read from the configured h5 file when None)."""
+    device = resolve_device(device)
+    if not _fit_gate_open(config):
+        return {}
+    if observables is None:
+        observables = obs_io.read_observables(config.output_dir, config.observables_filename)
+    name = config.group_name or ""
+    return _fit_batch({name: config}, {name: _prepare_group(config, n_opt_iters, observables)}, seed, device)[name]
+
+
 def fit_emulators(
     emulation_config: EmulationConfig,
     seed: int = 0,
@@ -139,7 +190,9 @@ def fit_emulators(
     observables: dict[str, Any] | None = None,
     write: bool = True,
 ) -> dict[str, dict[str, Any]]:
-    """Fit every pending emulation group; returns {group name: artifact}.
+    """Fit every pending emulation group; returns {group name: artifact} of
+    the groups it fitted (a group whose pickle exists is skipped unless
+    force_retrain).
 
     When all pending groups share identical fit settings (the common case),
     their PCs are fitted in one fused batch, in float64 on the CPU and
@@ -148,7 +201,6 @@ def fit_emulators(
     None). ``write=False`` keeps the artifacts in memory only.
     """
     device = resolve_device(device)
-    dtype = default_dtype(device)
     t0 = time.perf_counter()
     pending: dict[str, dict[str, Any]] = {}
     for name, group_config in emulation_config.emulation_groups_config.items():
@@ -167,25 +219,12 @@ def fit_emulators(
 
     artifacts: dict[str, dict[str, Any]] = {}
     for batch in batches:
-        Y_all = np.concatenate([pending[n]["Y_pca_truncated"] for n in batch], axis=1)
-        design = torch.as_tensor(pending[batch[0]]["design"], dtype=dtype, device=device)
-        Y_t = torch.as_tensor(Y_all, dtype=dtype, device=device)
-        spec = pending[batch[0]]["spec"]
-        logger.info(
-            f"GP fit: {Y_all.shape[1]} PCs across {len(batch)} groups x "
-            f"{spec.n_restarts + 1} restarts (design: {tuple(design.shape)})..."
-        )
-        gen = torch.Generator(device=device).manual_seed(seed)
         t0 = time.perf_counter()
-        posts = gp_fit.fit_gps(spec, design, Y_t, generator=gen)
-        offset = 0
-        for n in batch:
-            k = pending[n]["n_pc"]
-            group_cfg = emulation_config.emulation_groups_config[n]
-            artifacts[n] = _artifact_from_fit(group_cfg, pending[n], _host(posts, slice(offset, offset + k)))
+        fitted = _fit_batch(emulation_config.emulation_groups_config, {n: pending[n] for n in batch}, seed, device)
+        for n, artifact in fitted.items():
             if write:
-                write_emulators(group_cfg, artifacts[n])
-            offset += k
+                write_emulators(emulation_config.emulation_groups_config[n], artifact)
+        artifacts.update(fitted)
         logger.info(f"fit stage: fit_gps + artifacts {time.perf_counter() - t0:.2f}s")
     return artifacts
 
@@ -290,3 +329,120 @@ class GroupSliceMap:
 
         entries = [(label, *by_label[label]) for label in global_slices if label in by_label]
         return cls(entries=entries, n_features=pos)
+
+    def merge(self, group_matrices: dict[str, dict[str, np.ndarray]]) -> dict[str, np.ndarray]:
+        """Merge per-group predictions into global arrays (reference convert()).
+
+        central_value: (B, n_features); cov: block-diagonal per observable,
+        (B, n_features, n_features).
+        """
+        out: dict[str, np.ndarray] = {}
+        value_types = {vt for g in group_matrices.values() for vt in g}
+
+        if "central_value" in value_types:
+            B = next(iter(group_matrices.values()))["central_value"].shape[0]
+            merged = np.zeros((B, self.n_features))
+            for _, group, g_slice, grp_slice in self.entries:
+                merged[:, g_slice] = group_matrices[group]["central_value"][:, grp_slice]
+            out["central_value"] = merged
+
+        if "cov" in value_types:
+            B = next(iter(group_matrices.values()))["cov"].shape[0]
+            cov = np.zeros((B, self.n_features, self.n_features))
+            for _, group, g_slice, grp_slice in self.entries:
+                cov[:, g_slice, g_slice] = group_matrices[group]["cov"][:, grp_slice, grp_slice]
+            out["cov"] = cov
+        return out
+
+
+def predict_emulation_group(
+    parameters: np.ndarray,
+    results: dict[str, Any],
+    n_pc: int | None = None,
+    emulator_group_cov_unexplained: np.ndarray | None = None,
+    scale_cov_unexplained_by_n_samples: bool = True,
+    device="cuda",
+) -> dict[str, np.ndarray]:
+    """Emulator central values and covariance of one group at ``parameters`` (B, d).
+
+    central_value: (B, F) = unscale(z @ S_k); cov: (B, F, F) =
+    scale x [S_k diag(v) S_k^T + Sigma_unexplained (/B)] x scale, both
+    float64 numpy, as the JAX package returns them. The GP predict (z, v) and
+    the covariance run on ``device`` (float32 on CUDA, float64 on the CPU);
+    the central values are host float64 math on the downloaded z.
+
+    ``scale_cov_unexplained_by_n_samples`` reproduces the reference's division
+    of the truncation covariance by the number of prediction samples
+    (emulation.py:531-532). In the reference's production MCMC each walker is a
+    separate call (B=1), so the likelihood path uses the undivided form; keep
+    the flag True only for API parity with reference batch predictions.
+
+    Memory: the covariance is B * F^2 values, 4 * F^2 bytes per point on the
+    card (10.8 MB at F = 1,644) and 8 * F^2 on the host; B is not chunked.
+    """
+    device = resolve_device(device)
+    if n_pc is None:
+        n_pc = int(results["n_pc"])
+    state = pca_state_from_artifact(results)
+    if emulator_group_cov_unexplained is None:
+        emulator_group_cov_unexplained = pca_mod.truncation_covariance(state, n_pc)
+    cfg, posts = posterior_from_artifact(results, device)
+    dtype = posts.alpha.dtype
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    z, v = predict_all_shared(cfg, posts, t(parameters))  # (B, k), (B, k)
+    S_k = state.components[:n_pc]                         # (k, F)
+    mean = state.unscale_features(z.cpu().numpy() @ S_k)
+
+    B = np.asarray(parameters).shape[0]
+    S = t(S_k)
+    cov = torch.einsum("kf,bk,kg->bfg", S, v, S)
+    sigma = emulator_group_cov_unexplained / B if scale_cov_unexplained_by_n_samples else emulator_group_cov_unexplained
+    cov += t(sigma)[None, :, :]
+    cov *= t(np.outer(state.scale, state.scale))[None, :, :]
+    return {"central_value": mean, "cov": cov.cpu().numpy().astype(np.float64, copy=False)}
+
+
+def predict(
+    parameters: np.ndarray,
+    emulation_config: EmulationConfig,
+    merge_predictions_over_groups: bool = True,
+    emulation_group_results: dict[str, dict[str, Any]] | None = None,
+    emulator_cov_unexplained: dict[str, np.ndarray] | None = None,
+    slice_map: GroupSliceMap | None = None,
+    scale_cov_unexplained_by_n_samples: bool = True,
+    device="cuda",
+    observables: dict[str, Any] | None = None,
+) -> dict[str, Any]:
+    """Emulator predictions of every group at ``parameters`` (B, d), merged
+    over the groups (reference predict(), emulation.py:410-462), or
+    {group name: prediction} without the merge. Each group's prediction is
+    ``predict_emulation_group`` on ``device``. ``observables``: the
+    already-read observables dict for the slice map (read from the configured
+    h5 file when None). The merged covariance is (B, n_features, n_features)
+    float64 on the host, 8 * n_features^2 bytes per point beside the groups'.
+    """
+    device = resolve_device(device)
+    if emulation_group_results is None:
+        emulation_group_results = emulation_config.read_all_emulator_groups()
+    if emulator_cov_unexplained is None:
+        emulator_cov_unexplained = compute_emulator_cov_unexplained(emulation_config, emulation_group_results)
+
+    per_group = {
+        name: predict_emulation_group(
+            parameters,
+            emulation_group_results[name],
+            n_pc=cfg.n_pc,
+            emulator_group_cov_unexplained=emulator_cov_unexplained[name],
+            scale_cov_unexplained_by_n_samples=scale_cov_unexplained_by_n_samples,
+            device=device,
+        )
+        for name, cfg in emulation_config.emulation_groups_config.items()
+    }
+    if not merge_predictions_over_groups:
+        return per_group
+    if slice_map is None:
+        slice_map = GroupSliceMap.learn(emulation_config, observables=observables)
+    return slice_map.merge(per_group)

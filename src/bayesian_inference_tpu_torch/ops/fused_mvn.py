@@ -8,8 +8,13 @@ launch of ``csrc/fused_block_mvn.cu`` for all of them (and one of its
 fixed-order sum), where the JAX package makes one call per bucket. On CPU
 tensors both run the plain composed path (einsum assembly + the unrolled
 factorisation); on CUDA tensors they launch the kernel or raise. The kernel
-takes any walker count, so one kernel serves both of the JAX package's
-regimes (W <= 64 and W > 64).
+takes any walker count and any number of PCs, so one kernel serves both of
+the JAX package's regimes (W <= 64 and W > 64).
+
+Buckets wider than ``MAX_NB`` go to the dense path (composed assembly and
+the library Cholesky) on either device, exactly where the JAX package's
+``fused_block_mvn_loglike`` goes dense; the choice is made by shape before
+any launch, and their sums are added, in bucket order, to the one launch's.
 
 A batched closure run gives every point its own residual offsets: d0 is then
 (P, n_obs, nb) and the walkers (W = P * Wh) are laid out point-major, as the
@@ -27,8 +32,7 @@ from bayesian_inference_tpu_torch.ops.cholesky import tiny_mvn_loglike
 from bayesian_inference_tpu_torch.ops.mvn import mvn_loglike_dense
 
 KERNEL = NativeKernel("fused_block_mvn.cu", {"fused_block_mvn_buckets_f32": [I] + [P] * 9 + [I] * 3 + [P]})
-MAX_NB = 48
-MAX_K = 128
+MAX_NB = 48       # the widest bucket the CUDA kernel takes; wider ones go dense, as in the JAX package
 MAX_BUCKETS = 8
 
 
@@ -58,17 +62,8 @@ def fused_block_mvn_buckets_plain(Us, Ds, d0s, z, v) -> torch.Tensor:
 def _fused_block_mvn_cuda(Us, Ds, d0s, z, v) -> torch.Tensor:
     W, k = z.shape
     n_points = d0s[0].shape[0] if d0s[0].dim() == 3 else 1
-    if len(Us) > MAX_BUCKETS or k > MAX_K:
-        raise ValueError(
-            f"fused_block_mvn: {len(Us)} buckets of {k} PCs; the CUDA kernel takes at most {MAX_BUCKETS} "
-            f"buckets and {MAX_K} PCs"
-        )
     for U, D, d0 in zip(Us, Ds, d0s):
         n_obs, nb, _ = U.shape
-        if nb > MAX_NB:
-            raise ValueError(
-                f"fused_block_mvn: block width {nb} > {MAX_NB} has no CUDA kernel yet (ROADMAP queue 2)"
-            )
         per_point = d0.shape[0] if d0.dim() == 3 else 1
         if (U.shape[2] != k or D.shape != (n_obs, nb, nb) or d0.shape[-2:] != (n_obs, nb) or d0.dim() > 3
                 or per_point != n_points or W % n_points or v.shape != (W, k)):
@@ -77,17 +72,27 @@ def _fused_block_mvn_cuda(Us, Ds, d0s, z, v) -> torch.Tensor:
                 f"d0{tuple(d0.shape)} z{tuple(z.shape)} v{tuple(v.shape)}"
             )
     check_cuda_operands("fused_block_mvn", *Us, *Ds, *d0s, z, v)
-    n = len(Us)
-    # Host arrays of the buckets' pointers and sizes; the kernel reads them
-    # as launch arguments, so they need to live only for the call.
-    arrays = [(ctypes.c_void_p * n)(*(t.data_ptr() for t in ts)) for ts in (Us, Ds, d0s)]
-    arrays += [(ctypes.c_int * n)(*(U.shape[i] for U in Us)) for i in (0, 1)]
-    ll_blk = torch.empty((sum(U.shape[0] for U in Us), W), dtype=z.dtype, device=z.device)
-    out = torch.empty((W,), dtype=z.dtype, device=z.device)
-    KERNEL.launch(
-        "fused_block_mvn_buckets_f32", n, *(ctypes.addressof(a) for a in arrays), z.data_ptr(), v.data_ptr(),
-        ll_blk.data_ptr(), out.data_ptr(), k, W, W // n_points, stream_handle(z.device),
-    )
+    kernel = [i for i, U in enumerate(Us) if U.shape[1] <= MAX_NB]
+    if len(kernel) > MAX_BUCKETS:
+        raise ValueError(f"fused_block_mvn: {len(kernel)} buckets; the CUDA kernel takes at most {MAX_BUCKETS}")
+    out = None
+    if kernel:
+        Ks, KDs, Kd0s = ([ts[i] for i in kernel] for ts in (Us, Ds, d0s))
+        n = len(kernel)
+        # Host arrays of the buckets' pointers and sizes; the kernel reads them
+        # as launch arguments, so they need to live only for the call.
+        arrays = [(ctypes.c_void_p * n)(*(t.data_ptr() for t in ts)) for ts in (Ks, KDs, Kd0s)]
+        arrays += [(ctypes.c_int * n)(*(U.shape[i] for U in Ks)) for i in (0, 1)]
+        ll_blk = torch.empty((sum(U.shape[0] for U in Ks), W), dtype=z.dtype, device=z.device)
+        out = torch.empty((W,), dtype=z.dtype, device=z.device)
+        KERNEL.launch(
+            "fused_block_mvn_buckets_f32", n, *(ctypes.addressof(a) for a in arrays), z.data_ptr(), v.data_ptr(),
+            ll_blk.data_ptr(), out.data_ptr(), k, W, W // n_points, stream_handle(z.device),
+        )
+    for i in range(len(Us)):
+        if i not in kernel:
+            term = fused_block_mvn_plain(Us[i], Ds[i], d0s[i], z, v)
+            out = term if out is None else out + term
     return out
 
 

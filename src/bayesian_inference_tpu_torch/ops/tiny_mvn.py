@@ -4,8 +4,10 @@ Counterpart of ``bayesian_inference_tpu.ops.pallas_mvn.block_mvn_loglike``
 (which reaches the Pallas kernel ``_mvn_kernel``), with the same arguments
 and result. On a CPU tensor it runs the plain version (the unrolled
 factorisation, or, as the JAX package does, the dense path for blocks wider
-than ``DENSE_ABOVE``); on a CUDA tensor it launches ``csrc/tiny_mvn.cu``
-(blocks up to ``MAX_NB`` wide) or raises.
+than ``DENSE_ABOVE``); on a CUDA tensor it launches ``csrc/tiny_mvn.cu`` for
+blocks up to ``MAX_NB`` wide (or raises), and takes the dense path for wider
+ones, where the JAX package is dense too: the choice is made by shape,
+before any launch.
 
 The kernel returns both terms of the sweep, quad = |L^-1 dY|^2 and
 half_logdet = sum log diag L, so the Woodbury likelihood (ops/mvn.py) takes
@@ -23,7 +25,7 @@ from bayesian_inference_tpu_torch.ops.cholesky import tiny_mvn_terms
 from bayesian_inference_tpu_torch.ops.mvn import mvn_terms_dense
 
 KERNEL = NativeKernel("tiny_mvn.cu", {"tiny_mvn_f32": [P] * 4 + [I] * 2 + [P]})
-MAX_NB = 64       # the widest block the CUDA kernel takes
+MAX_NB = 64       # the widest block the CUDA kernel takes; wider ones go dense on the card
 DENSE_ABOVE = 48  # the JAX package's block_mvn_loglike goes dense above this width
 
 
@@ -37,11 +39,11 @@ def mvn_terms_plain(dY: torch.Tensor, C: torch.Tensor) -> tuple[torch.Tensor, to
 
 def _mvn_terms_cuda(dY: torch.Tensor, C: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     *lead, nb = dY.shape
-    if nb > MAX_NB:
-        raise ValueError(f"block_mvn: block width {nb} > {MAX_NB} has no CUDA kernel yet (ROADMAP)")
     if C.shape != (*lead, nb, nb):
         raise ValueError(f"block_mvn: shape mismatch dY{tuple(dY.shape)} C{tuple(C.shape)}")
     check_cuda_operands("block_mvn", dY, C)
+    if nb > MAX_NB:
+        return mvn_terms_dense(dY, C)
     quad = torch.empty(lead, dtype=dY.dtype, device=dY.device)
     half_logdet = torch.empty_like(quad)
     KERNEL.launch(

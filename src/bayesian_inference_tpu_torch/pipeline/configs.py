@@ -46,6 +46,8 @@ class EmulationGroupConfig:
     def __post_init__(self) -> None:
         self.config = _top_level(self.config, self.config_file)
         self.observable_table_dir = self.config["observable_table_dir"]
+        # The plots read STAT_<sqrts>.yaml axis titles from here.
+        self.observable_config_dir = self.config["observable_config_dir"]
         self.observables_filename = self.config["observables_filename"]
 
         emulators_cfg = self.analysis_config["parameters"]["emulators"]

@@ -3,17 +3,19 @@
 
 Runs, per analysis x parameterization, the toggled stages:
 initialize observables -> preprocess -> fit emulators -> cross-validation ->
-MCMC -> closure tests. With ``write=True`` (the CLI) the stages hand their
-results on through the same on-disk artifacts as the JAX steer
-(observables.h5, observables_preprocessed.h5, emulation*.pkl,
+MCMC -> closure tests, then the plotting suite. With ``write=True`` (the CLI)
+the stages hand their results on through the same on-disk artifacts as the
+JAX steer (observables.h5, observables_preprocessed.h5, emulation*.pkl,
 cross_validation_<group>.h5, mcmc.h5, closure/results/<i>/mcmc.h5), so
 stages can be re-run independently. With ``write=False`` each stage passes
 its result to the next in memory and no ``.h5`` or ``.pkl`` artifact is
 written (for machines without ``h5py``); the runners' checkpoint files are
 still written.
 
-The plotting stage is not ported yet: a configuration with any ``plot``
-toggle on is refused before any stage runs.
+The plots (``plots/``, host matplotlib) read the artifacts from disk, as the
+JAX plots do, and their emulator predictions run on the steer's device. So a
+configuration with a ``plot`` toggle on is refused before any stage runs
+where matplotlib cannot be imported, or with ``write=False``.
 
     python -m bayesian_inference_tpu_torch.pipeline.steer -c config.yaml
 """
@@ -22,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib.util
 import logging
 import os
 import shutil
@@ -80,10 +83,15 @@ class SteerAnalysis:
         self.plot = config["plot"]
         self.analyses = config["analyses"]
         on = sorted(k for k, v in self.plot.items() if v)
-        if on:
-            raise NotImplementedError(
-                f"plot toggles {on} are on, but the port has no plotting stage yet (ROADMAP.md queue 1, "
-                "item 24: plots/* with physics/qhat.py and physics/priors.py); set them to False"
+        if on and importlib.util.find_spec("matplotlib") is None:
+            raise RuntimeError(
+                f"plot toggles {on} are on, but matplotlib cannot be imported here; run the plots on a host that "
+                "has it, from the artifacts, or set the toggles to False"
+            )
+        if on and not write:
+            raise ValueError(
+                f"plot toggles {on} are on with write=False, but the plots read the artifacts from disk; "
+                "run with write=True or set the toggles to False"
             )
         if write:
             os.makedirs(self.output_dir, exist_ok=True)
@@ -94,8 +102,9 @@ class SteerAnalysis:
 
     # ------------------------------------------------------------------
     def run_analysis(self) -> dict[str, dict[str, Any]]:
-        """Run every analysis x parameterization; returns {"<analysis>_<parameterization>":
-        the stage results of that run (see ``_run_single``)}."""
+        """Run every analysis x parameterization, then the toggled plots;
+        returns {"<analysis>_<parameterization>": the stage results of that
+        run (see ``_run_single``)}."""
         handler = None
         if self.write:
             handler = logging.FileHandler(os.path.join(self.output_dir, "steer_analysis.log"), "w")
@@ -109,11 +118,13 @@ class SteerAnalysis:
                 with open(copy, "w") as f:
                     yaml.safe_dump(self.config, f)
         try:
-            return {
+            results = {
                 f"{analysis_name}_{parameterization}": self._run_single(analysis_name, parameterization, ac)
                 for analysis_name, ac in self.analyses.items()
                 for parameterization in ac["parameterizations"]
             }
+            self._run_plots()
+            return results
         finally:
             if handler is not None:
                 logging.getLogger().removeHandler(handler)
@@ -189,8 +200,8 @@ class SteerAnalysis:
                 fitted = emulator.fit_emulators(emulation_config, device=self.device, observables=observables,
                                                 write=self.write)
                 result["emulation"] = fitted
-                if not self.write and fitted:
-                    emulation_results = fitted
+                if not self.write:
+                    emulation_results = _every_group(emulation_config, fitted)
 
             if any(g.cross_validation for g in emulation_config.emulation_groups_config.values()):
                 with self._stage(timings, "cross_validation", tag):
@@ -224,6 +235,55 @@ class SteerAnalysis:
                     checkpoint_every=max(1, mcmc_config.n_sampling_steps // 4), return_chains=False,
                 )
         return result
+
+    # ------------------------------------------------------------------
+    def _run_plots(self) -> None:
+        """The toggled plots of every analysis x parameterization, from the
+        artifacts on disk; their emulator predictions run on the steer's device."""
+        if not any(self.plot.values()):
+            return
+        from bayesian_inference_tpu_torch import plots
+
+        with stage_timer("plots", logger), annotate("plots"):
+            for analysis_name, analysis_config in self.analyses.items():
+                for parameterization in analysis_config["parameterizations"]:
+                    args = (analysis_name, parameterization, analysis_config)
+                    emulation_config = EmulationConfig.from_config_file(
+                        *args, config_file=self.config_file, config=self.config
+                    )
+                    mcmc_config = self._configs(MCMCConfig, *args)
+                    if self.plot.get("input_data"):
+                        plots.input_data.plot(emulation_config)
+                    if self.plot.get("emulators"):
+                        plots.emulation.plot(emulation_config, device=self.device)
+                    if self.plot.get("mcmc"):
+                        plots.mcmc.plot(mcmc_config, device=self.device)
+                    if self.plot.get("qhat"):
+                        plots.qhat.plot(mcmc_config, device=self.device)
+                    if self.plot.get("closure_tests"):
+                        plots.closure.plot(mcmc_config)
+
+            if self.plot.get("across_analyses"):
+                plots.analyses.plot(self.analyses, self.config_file, self.output_dir, config=self.config)
+
+
+def _every_group(emulation_config: EmulationConfig, fitted: dict[str, dict[str, Any]]) -> dict[str, dict[str, Any]]:
+    """Every group's artifact, in memory: those fitted in this run, and those
+    ``fit_emulators`` skipped because their pickle already exists, read from
+    it. Raises ValueError for a group that is neither."""
+    from bayesian_inference_tpu_torch.models.emulator import read_emulators
+
+    out = {}
+    for name, group_config in emulation_config.emulation_groups_config.items():
+        if name in fitted:
+            out[name] = fitted[name]
+        elif os.path.exists(group_config.emulation_outputfile):
+            out[name] = read_emulators(group_config)
+        else:
+            raise ValueError(
+                f"emulation group {name!r} was not fitted in this run and has no {group_config.emulation_outputfile}"
+            )
+    return out
 
 
 def main(argv: list[str] | None = None) -> None:

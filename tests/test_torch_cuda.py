@@ -159,12 +159,16 @@ def _buckets(widths, k, W, n_points, seed=8):
     ((33, 48), 7, 100, 2),
     ((7, 16, 33), 41, 1500, 30),
     ((1, 8, 16, 24, 33, 48), 41, 100, 1),
+    ((8, 16, 24), 160, 50, 1),
+    ((33, 48), 160, 100, 2),
+    ((8, 24), 300, 50, 1),
 ])
 def test_fused_block_mvn_buckets_kernel(device, widths, k, W, n_points):
     """K1's all-bucket launch: one launch, within the chip smoke's 1e-5 of
     max |ll| of the float64 plain version, bit-equal on repeat and to one
     launch per point, and NaN only in the walker whose covariances are not
-    positive definite."""
+    positive definite; at k = 160 and 300 the PCs are staged in chunks of
+    128."""
     Us, Ds, d0s, z, v = _buckets(widths, k, W, n_points)
     t64 = lambda xs: tuple(torch.tensor(x, device=device) for x in xs)  # noqa: E731
     ops64 = (t64(Us), t64(Ds), t64(d0s), *t64((z, v)))
@@ -304,9 +308,6 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(device):
         bc.diag_chol_inv(torch.zeros((2, 65, 65), device=device))
     with pytest.raises(ValueError, match="contiguous"):
         bc.diag_chol_inv(A.float().transpose(-1, -2))
-    ops = [torch.tensor(x, device=device).float() for x in _mvn(2, 56, 3, 4)]
-    with pytest.raises(ValueError, match="no CUDA kernel"):
-        fused_mvn.fused_block_mvn_loglike(*ops)
     ops = [torch.tensor(x, device=device).float() for x in _mvn(2, 8, 3, 4)]
     with pytest.raises(ValueError, match="shape mismatch"):
         fused_mvn.fused_block_mvn_loglike(ops[0], ops[1], ops[2], ops[3][:, :2], ops[4])
@@ -315,9 +316,50 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(device):
         tiny_mvn.block_mvn_loglike(dY, C)
     with pytest.raises(ValueError, match="contiguous"):
         tiny_mvn.block_mvn_loglike(dY.float(), C.float().transpose(-1, -2))
-    dY, C = (torch.tensor(x, device=device).float() for x in _capacitance(4, 65))
-    with pytest.raises(ValueError, match="no CUDA kernel"):
-        tiny_mvn.block_mvn_loglike(dY, C)
+
+
+def test_wider_blocks_than_the_kernels_take_go_dense_on_the_card(device):
+    """Where the JAX package goes dense, so does the card, chosen by shape
+    before any launch: a K1 bucket of width 56 and K4 capacitance matrices
+    of 65 and 72 PCs launch no kernel and lie within 1e-5 of max |ll| of the
+    float64 plain versions."""
+    ops64 = [torch.tensor(x, device=device) for x in _mvn(2, 56, 3, 4)]
+    before = fused_mvn.KERNEL.launches
+    ll = fused_mvn.fused_block_mvn_loglike(*(x.float() for x in ops64))
+    torch.cuda.synchronize()
+    assert fused_mvn.KERNEL.launches == before
+    ref = fused_mvn.fused_block_mvn_plain(*ops64)
+    assert ll.shape == (4,) and bool(torch.isfinite(ll).all())
+    assert float((ll.double() - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    for k in (65, 72):
+        dY64, C64 = (torch.tensor(x, device=device) for x in _capacitance(50, k))
+        before = tiny_mvn.KERNEL.launches
+        ll = tiny_mvn.block_mvn_loglike(dY64.float(), C64.float())
+        torch.cuda.synchronize()
+        assert tiny_mvn.KERNEL.launches == before
+        ref = tiny_mvn.block_mvn_plain(dY64, C64)
+        assert ll.shape == (50,) and bool(torch.isfinite(ll).all())
+        assert float((ll.double() - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("n_points", [1, 3])
+def test_fused_block_mvn_buckets_beside_a_dense_bucket(device, n_points):
+    """Buckets of width 8, 16, 24 and 56 in one call: the first three take
+    one K1 launch, the 56-wide one the dense path, added in bucket order;
+    within 1e-5 of max |ll| of the float64 plain version, bit-equal on
+    repeat."""
+    Us, Ds, d0s, z, v = _buckets((8, 16, 24, 56), 41, 30 * n_points, n_points)
+    t64 = lambda xs: tuple(torch.tensor(x, device=device) for x in xs)  # noqa: E731
+    ops64 = (t64(Us), t64(Ds), t64(d0s), *t64((z, v)))
+    ops = tuple(tuple(x.float() for x in o) if isinstance(o, tuple) else o.float() for o in ops64)
+    before = fused_mvn.KERNEL.launches
+    ll = fused_mvn.fused_block_mvn_loglike_buckets(*ops)
+    torch.cuda.synchronize()
+    assert fused_mvn.KERNEL.launches == before + 1
+    ref = fused_mvn.fused_block_mvn_buckets_plain(*ops64)
+    assert bool(torch.isfinite(ll).all())
+    assert float((ll.double() - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert torch.equal(ll, fused_mvn.fused_block_mvn_loglike_buckets(*ops))
 
 
 @pytest.fixture(scope="module")

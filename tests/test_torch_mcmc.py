@@ -35,6 +35,9 @@ from bayesian_inference_tpu_torch.models import cv as tcv
 from bayesian_inference_tpu_torch.models import emulator as temulator
 from bayesian_inference_tpu_torch.pipeline import configs as tconfigs
 from bayesian_inference_tpu_torch.pipeline import steer as tsteer
+from bayesian_inference_tpu_torch.plots import emulation as tplot_emulation
+from bayesian_inference_tpu_torch.plots import mcmc as tplot_mcmc
+from bayesian_inference_tpu_torch.plots import qhat as tplot_qhat
 
 N_WALKERS, N_BURN, N_STEPS = 16, 40, 100
 
@@ -339,6 +342,14 @@ ENTRY_POINTS = {
     "build_likelihood": (tlik.build_likelihood,
                          lambda r: ((r.temu, r.artifacts, r.exp, r.lo, r.hi), {"observables": r.observables})),
     "SteerAnalysis": (tsteer.SteerAnalysis, lambda r: ((), {"config_file": str(r.path), "write": False})),
+    "fit_emulator_group": (temulator.fit_emulator_group,
+                           lambda r: ((next(iter(r.temu.emulation_groups_config.values())),), {})),
+    "predict_emulation_group": (temulator.predict_emulation_group,
+                                lambda r: ((r.lo[None], r.artifacts[next(iter(r.artifacts))]), {})),
+    "predict": (temulator.predict, lambda r: ((r.lo[None], r.temu), {"emulation_group_results": r.artifacts})),
+    "plots.emulation.plot": (tplot_emulation.plot, lambda r: ((r.temu,), {})),
+    "plots.mcmc.plot": (tplot_mcmc.plot, lambda r: ((r.tmcmc,), {})),
+    "plots.qhat.plot": (tplot_qhat.plot, lambda r: ((r.tmcmc,), {})),
 }
 
 
@@ -362,8 +373,9 @@ def test_entry_point_default_raises_without_a_card(fixture_run, monkeypatch, nam
 
 
 def test_port_never_imports_jax():
-    """Importing every module of the port, the steer entry point and the
-    modules it runs among them, pulls in no JAX (the card's machine has none)."""
+    """Importing every module of the port, the steer entry point, the
+    modules it runs and the plots among them, pulls in no JAX (the card's
+    machine has none) and no module of the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import bayesian_inference_tpu_torch as p\n"
@@ -371,9 +383,11 @@ def test_port_never_imports_jax():
         "[importlib.import_module(n) for n in names]\n"
         "assert len(names) > 20, names\n"
         "for n in ('pipeline.steer', 'models.cv', 'preprocess', 'preprocess.outliers', 'utils.profiling',\n"
-        "          'utils.helpers'):\n"
+        "          'utils.helpers', 'plots', 'plots.utils', 'plots.input_data', 'plots.emulation', 'plots.mcmc',\n"
+        "          'plots.qhat', 'plots.closure', 'plots.analyses', 'physics', 'physics.qhat', 'physics.priors'):\n"
         "    assert p.__name__ + '.' + n in names, n\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'bayesian_inference_tpu'))\n"
         "assert not bad, bad\n"
     )
     src = Path(__file__).resolve().parents[1] / "src"

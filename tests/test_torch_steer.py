@@ -1,9 +1,11 @@
 """The port's steer entry point and the runners' checkpoint/resume, on the
 bundled fixture: resume bit-equal to an uninterrupted run at the same
 cadence (run_mcmc in both likelihood modes, the closure batch), a foreign or
-torn checkpoint, the steer's artifacts against the JAX steer's on the same
-tiny config, its in-memory mode, its refusals, and the profiling hooks."""
+torn checkpoint, the steer's artifacts and plots against the JAX steer's on
+the same tiny config, its in-memory mode (also with groups already fitted on
+disk), its refusals, and the profiling hooks."""
 
+import importlib.util
 import json
 import os
 import pickle
@@ -139,10 +141,12 @@ def test_foreign_checkpoint_restarts_fresh(fitted, monkeypatch, caplog):
     np.testing.assert_array_equal(other["burn_log_prob"], fresh["burn_log_prob"])
 
 
-def _steer_yaml(tmp_path):
+def _steer_yaml(tmp_path, plots: bool = False):
     """A tiny steer config over the fixture: preprocessing (downstream stages
     read observables_preprocessed.h5), two groups one of which asks for CV,
-    MCMC with a checkpoint cadence, and the closure batch over two points."""
+    MCMC with a checkpoint cadence, and the closure batch over two points.
+    With ``plots``, every plot toggle is on, and the input-data correlation
+    study renders one grid (its render cost grows with the bins squared)."""
     tmp_path.mkdir(parents=True, exist_ok=True)
     groups = {"group_ch": {"n_pc": 2, "observable_list": ["pt_ch_"], "cross_validation": True,
                            "cross_validation_k": 2},
@@ -154,6 +158,9 @@ def _steer_yaml(tmp_path):
                observables_filename="observables_preprocessed.h5")
     cfg["analyses"][name]["validation_indices"] = [200, 202]
     cfg["analyses"][name]["parameters"]["mcmc"]["checkpoint_every"] = 6
+    if plots:
+        cfg["plot"] = {key: True for key in cfg["plot"]}
+        cfg.update(plot_correlations_full=False, plot_correlations_max_rendered=1)
     path.write_text(yaml.safe_dump(cfg))
     return path, cfg
 
@@ -180,15 +187,16 @@ def _artifacts(output_dir: Path) -> dict[str, list[str]]:
 
 def test_steer_writes_the_artifacts_of_the_jax_steer(tmp_path):
     """The port's CLI (``--device cpu --x64``) and the JAX steer on the same
-    tiny config, plots off: the same files under output_dir, with the same
-    h5 keys and emulator artifact keys; no checkpoint left behind. The same
-    config run in memory (config dict, write=False) writes no artifact and
-    gives the same chain as the run through files."""
+    tiny config, every plot toggle on: the same files under output_dir (the
+    plots' PDFs among them), with the same h5 keys and emulator artifact
+    keys; no checkpoint left behind. The same config run in memory (config
+    dict, write=False, plots off) writes no artifact and gives the same
+    chain as the run through files."""
     from bayesian_inference_tpu.pipeline.steer import SteerAnalysis as JaxSteer
 
-    path, cfg = _steer_yaml(tmp_path / "torch")
+    path, cfg = _steer_yaml(tmp_path / "torch", plots=True)
     tsteer.main(["-c", str(path), "--device", "cpu", "--x64"])
-    jpath, _ = _steer_yaml(tmp_path / "jax")
+    jpath, _ = _steer_yaml(tmp_path / "jax", plots=True)
     JaxSteer(config_file=str(jpath)).run_analysis()
 
     ours = _artifacts(tmp_path / "torch" / "output")
@@ -198,9 +206,12 @@ def test_steer_writes_the_artifacts_of_the_jax_steer(tmp_path):
     run = "analysis_test_exponential"
     assert f"{run}/cross_validation_group_ch.h5" in ours and f"{run}/closure/results/1/mcmc.h5" in ours
     assert not [p for p in ours if "checkpoint" in p]
+    for plot_dir in ("plot_input_data", "plot_emulation", "plot_mcmc", "plot_qhat", "plot_closure"):
+        assert [p for p in ours if p.startswith(f"{run}/{plot_dir}/") and p.endswith(".pdf")], plot_dir
+    assert "qhat_across_analyses.pdf" in ours
 
     mem_dir = tmp_path / "memory"
-    mem_cfg = {**cfg, "output_dir": str(mem_dir / "output")}
+    mem_cfg = {**cfg, "output_dir": str(mem_dir / "output"), "plot": {key: False for key in cfg["plot"]}}
     results = tsteer.SteerAnalysis(config=mem_cfg, device="cpu", write=False).run_analysis()
     result = results[run]
     assert sorted(result["timings"]) == ["closure", "cross_validation", "fit_emulators", "mcmc", "preprocess"]
@@ -211,12 +222,52 @@ def test_steer_writes_the_artifacts_of_the_jax_steer(tmp_path):
     np.testing.assert_array_equal(result["mcmc"]["chain"], stored["chain"])
 
 
-def test_plot_toggles_raise_before_any_stage(tmp_path):
+@pytest.mark.parametrize("refusal", ["no matplotlib", "write=False"])
+def test_plot_toggles_raise_before_any_stage(tmp_path, monkeypatch, refusal):
+    """A plot toggle on is refused at construction, before any stage runs
+    and before the output directory is made, where matplotlib cannot be
+    imported (the card's machine) and with write=False (the plots read the
+    artifacts from disk); the message names the toggles that are on."""
     path, cfg = _steer_yaml(tmp_path)
     cfg["plot"]["mcmc"] = True
-    with pytest.raises(NotImplementedError, match=r"plot toggles \['mcmc'\].*ROADMAP"):
-        tsteer.SteerAnalysis(config=cfg, device="cpu")
+    if refusal == "no matplotlib":
+        find_spec = importlib.util.find_spec
+        monkeypatch.setattr(importlib.util, "find_spec", lambda name, *a: None if name == "matplotlib"
+                            else find_spec(name, *a))
+        with pytest.raises(RuntimeError, match=r"plot toggles \['mcmc'\] are on, but matplotlib cannot be imported"):
+            tsteer.SteerAnalysis(config=cfg, device="cpu")
+    else:
+        with pytest.raises(ValueError, match=r"plot toggles \['mcmc'\] are on with write=False"):
+            tsteer.SteerAnalysis(config=cfg, device="cpu", write=False)
     assert not Path(cfg["output_dir"]).exists()
+
+
+def test_in_memory_steer_reads_groups_already_fitted_on_disk(tmp_path, monkeypatch):
+    """In memory (write=False), fit_emulators skips a group whose pickle is
+    already on disk (force_retrain False); the steer reads that group from
+    its pickle and hands every group to the MCMC, which gives the same chain
+    as the run that fits both groups; the log-probs agree to rtol 1e-12 (the
+    group fitted alone is a smaller batch of the same float64 fit, which
+    rounds its last bits differently). A group neither fitted nor on disk is
+    named in a ValueError."""
+    path, name, param = make_analysis_yaml(tmp_path, n_walkers=8, n_burn_steps=8, n_sampling_steps=16, n_restarts=1)
+    cfg = yaml.safe_load(path.read_text())
+    run = f"{name}_{param}"
+    both = tsteer.SteerAnalysis(config=cfg, device="cpu", write=False).run_analysis()[run]
+    assert sorted(both["emulation"]) == ["group_ch", "group_pi"]
+    emu = tconfigs.EmulationConfig.from_config_file(name, param, cfg["analyses"][name], config=cfg)
+    temulator.write_emulators(emu.emulation_groups_config["group_pi"], both["emulation"]["group_pi"])
+
+    partial = tsteer.SteerAnalysis(config=cfg, device="cpu", write=False).run_analysis()[run]
+    assert sorted(partial["emulation"]) == ["group_ch"]
+    for key in ("chain", "acceptance_fraction"):
+        np.testing.assert_array_equal(partial["mcmc"][key], both["mcmc"][key], err_msg=key)
+    np.testing.assert_allclose(partial["mcmc"]["log_prob"], both["mcmc"]["log_prob"], rtol=1e-12)
+
+    os.remove(emu.emulation_groups_config["group_pi"].emulation_outputfile)
+    monkeypatch.setattr(temulator, "fit_emulators", lambda *args, **kwargs: {})
+    with pytest.raises(ValueError, match="'group_ch' was not fitted in this run"):
+        tsteer.SteerAnalysis(config=cfg, device="cpu", write=False).run_analysis()
 
 
 def test_cli_refuses_cuda_without_a_card_and_x64_on_cuda(tmp_path, monkeypatch):
