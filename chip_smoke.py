@@ -11,6 +11,15 @@ version at the shapes of the paths that run it, then drives those paths at
 production width through the entry points a user calls, each with the kernel
 launch counts set to 0 just before it and read just after:
 
+- the sampler programs (``mcmc/programs.SamplerPrograms``, a captured CUDA
+  graph of the ensemble step, through which both runners run every chunk)
+  against the eager loop (``stretch.run_chunk`` / ``run_chunk_batched``): 200
+  steps from one state and one set of draws, block and lowrank mode and the
+  30-point batch in both, bit for bit, from a program captured on the
+  fitted likelihood and from one captured on the zero-valued placeholder of
+  the same shapes; the replay-aware launch counts; then both timed in turns
+  (eager, program, program, eager), with the step's analytic FLOPs
+  (``utils/flops.py``), the capture's seconds and the program's peak bytes;
 - fit then sample: ``fit_emulators`` -> ``build_likelihood`` (block mode) ->
   ``run_mcmc``;
 - one lowrank (Woodbury) analysis: ``run_mcmc(mode="lowrank")`` on the same
@@ -30,7 +39,8 @@ fit's three batch sizes, K4 at the lowrank batch sizes and at the widest
 capacitance matrix it takes (64 PCs). The fit checks K3's launches by batch
 size; the steer prints them. In block mode every
 likelihood evaluation is one launch of K1 for all width buckets; each path
-checks that its K1 launches equal its block-mode evaluations.
+checks that its K1 launches equal its block-mode evaluations, counted as its
+eager evaluations plus two per step a program replayed.
 
 One line per phase; the line before the last is the card's name and power
 limit as ``nvidia-smi`` reports them, the line before that the kernels' JSON
@@ -80,6 +90,12 @@ N_PCS = 41
 # MCMC config, so its closure batch also runs 2,000 steps (checkpointed every
 # quarter, as the steer does); the closure resume check runs at 500 steps.
 STEER_CV_K, STEER_CHECKPOINT_EVERY = 5, 500
+# The programs phase: its own quick fit (4 restarts, 20 iterations) at
+# production width, the bit-equality run, and the timed turns (the eager
+# turns run fewer steps to stay inside the script's time).
+PROGRAM_FIT = {"n_restarts": 4, "n_opt_iters": 20}
+PROGRAM_CHECK_STEPS, PROGRAM_TIMED_STEPS, PROGRAM_EAGER_STEPS = 200, 2000, 500
+PROGRAM_PROFILED_STEPS = 100  # the profiler window that gives the device-busy time per step
 # Production with and without chunking is timed in turns: the steer's own
 # (chunked) run, then this many (one chunk, chunked) pairs, then one chunk.
 STEER_TIMING_PAIRS = 3
@@ -191,21 +207,32 @@ def bound_text(ms: float, b: dict) -> str:
 
 @contextlib.contextmanager
 def count_evaluations():
-    """Count likelihood evaluations by mode while the block runs."""
+    """Count likelihood evaluations by mode while the block runs: every eager
+    call of ``log_likelihood`` (not those a stream capture records, which run
+    nothing), and two per step that a sampler program replays as a graph."""
     from bayesian_inference_tpu_torch.mcmc.likelihood import EmulatorLikelihood
+    from bayesian_inference_tpu_torch.mcmc.programs import SamplerPrograms
 
-    inner = EmulatorLikelihood.log_likelihood
+    inner, inner_chunk = EmulatorLikelihood.log_likelihood, SamplerPrograms.chunk
     calls = {"block": 0, "lowrank": 0}
 
     def counted(self, theta):
-        calls[self.mode] += 1
+        if not torch.cuda.is_current_stream_capturing():
+            calls[self.mode] += 1
         return inner(self, theta)
 
+    def counted_chunk(self, state, like, n_steps, *args, **kwargs):
+        if self.captured:
+            calls[self.mode] += 2 * n_steps
+        return inner_chunk(self, state, like, n_steps, *args, **kwargs)
+
     EmulatorLikelihood.log_likelihood = counted
+    SamplerPrograms.chunk = counted_chunk
     try:
         yield calls
     finally:
         EmulatorLikelihood.log_likelihood = inner
+        SamplerPrograms.chunk = inner_chunk
 
 
 def check_k1_per_evaluation(launches: dict, calls: dict, path: str) -> None:
@@ -700,27 +727,17 @@ def mcmc_config_for(config: dict, n_steps: int):
     return MCMCConfig(ANALYSIS, PARAMETERIZATION, analysis, config=config)
 
 
-def phase_slice(device, kernels, n_restarts: int = N_RESTARTS, n_opt_iters: int = N_OPT_ITERS,
-                n_walkers: int = N_WALKERS, n_burn: int = N_BURN, n_steps: int = N_STEPS,
-                n_check: int = 64) -> tuple[dict, dict]:
-    """The main path at production width: fit -> likelihood -> sampler.
-    Returns (kernel launches, what later phases reuse: emulators, observables,
-    configs and the production chain)."""
-    from bayesian_inference_tpu_torch.io import observables as obs_io
+def production_data() -> dict:
+    """The production-width inputs every path phase shares: the synthetic
+    production tables, ingested in memory, and the configs over them."""
     from bayesian_inference_tpu_torch.io.synthetic import make_production_tables
     from bayesian_inference_tpu_torch.io.tables import initialize_observables_dict_from_tables
-    from bayesian_inference_tpu_torch.mcmc.likelihood import build_likelihood
-    from bayesian_inference_tpu_torch.mcmc.runner import run_mcmc
-    from bayesian_inference_tpu_torch.models.emulator import fit_emulators, posterior_from_artifact
-    from bayesian_inference_tpu_torch.models.gp import _LOG_2PI
-    from bayesian_inference_tpu_torch.ops.fused_mvn import fused_block_mvn_buckets_plain
-    from bayesian_inference_tpu_torch.ops.gram import train_gram
     from bayesian_inference_tpu_torch.pipeline.configs import EmulationConfig, MCMCConfig
 
     t = time.perf_counter()
     table_dir = WORK_DIR / "production_tables"
     make_production_tables(table_dir)
-    config = production_config(WORK_DIR, table_dir, n_walkers, n_burn, n_steps, n_restarts)
+    config = production_config(WORK_DIR, table_dir, N_WALKERS, N_BURN, N_STEPS, N_RESTARTS)
     analysis = config["analyses"][ANALYSIS]
     observables = initialize_observables_dict_from_tables(str(table_dir), analysis, PARAMETERIZATION)
     emu = EmulationConfig.from_config_file(ANALYSIS, PARAMETERIZATION, analysis, config=config)
@@ -728,10 +745,219 @@ def phase_slice(device, kernels, n_restarts: int = N_RESTARTS, n_opt_iters: int 
     n_obs = len(observables["Prediction"])
     n_features = sum(np.atleast_2d(p["y"]).shape[0] for p in observables["Prediction"].values())
     n_design = observables["Design"].shape[0]
-    t_data = time.perf_counter() - t
-    print(f"slice data: {n_obs} observables / {n_features} features / design ({n_design}, "
-          f"{observables['Design'].shape[1]}) from the synthetic production tables, {t_data:.2f} s (set-up)",
-          flush=True)
+    print(f"data: {n_obs} observables / {n_features} features / design ({n_design}, "
+          f"{observables['Design'].shape[1]}) from the synthetic production tables, "
+          f"{time.perf_counter() - t:.2f} s (set-up)", flush=True)
+    return {"table_dir": table_dir, "observables": observables, "emu": emu, "mcmc": mcmc}
+
+
+def wall_ms_per_step(fn, n_steps: int) -> float:
+    """Host-clock milliseconds per step of ``fn()``, a run of ``n_steps``
+    sampler steps, the device drained before and after."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t) / n_steps
+
+
+def device_ms_per_step(fn, n_steps: int, top: int = 8) -> tuple[float | None, str]:
+    """Device-busy milliseconds per step of ``fn()``, a run of ``n_steps``
+    sampler steps: the summed duration of every kernel and copy that
+    ``torch.profiler`` saw on the card (one stream, so they do not overlap);
+    and the ``top`` kernels by that time, as "name ms/step (launches/step)".
+    Only the profiler's device rows count: a host op's row repeats the time
+    of the kernels it launched. (None, "") when the profiler reports no
+    device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    busy_us = sum(us for us, _, _ in rows)
+    if busy_us <= 0:
+        return None, ""
+    kernels = ", ".join(f"{key[:48]} {us / 1e3 / n_steps:.4f} ({count / n_steps:.1f})" for us, count, key in rows[:top])
+    n_kernels = sum(count for _, count, _ in rows) / n_steps
+    return busy_us / 1e3 / n_steps, f"{n_kernels:.1f} kernels and copies per step; {kernels}"
+
+
+def same_chunk(a, b) -> dict[str, bool]:
+    """Bit equality of two chunk results (final state, (chain, log-probs, acceptance))."""
+    (sa, ya), (sb, yb) = a, b
+    names = ("coords", "final_log_prob", "n_accepted", "chain", "log_prob", "acceptance")
+    return {n: bool(torch.equal(x, y)) for n, x, y in zip(names, (*sa, *ya), (*sb, *yb))}
+
+
+def phase_programs(device, kernels, data: dict) -> dict:
+    """The sampler programs against the eager loop at production width (41
+    PCs, 100 walkers; 30 points x 100 walkers for the batch), on emulators
+    fitted here with a short schedule: bit equality over 200 steps, from a
+    program captured on the fitted likelihood and from one captured on the
+    placeholder likelihood; the replay-aware launch counts; then eager,
+    program, program, eager timed in turns. Returns the measured rates."""
+    from bayesian_inference_tpu_torch.io import observables as obs_io
+    from bayesian_inference_tpu_torch.mcmc import likelihood as lik
+    from bayesian_inference_tpu_torch.mcmc import stretch
+    from bayesian_inference_tpu_torch.mcmc.programs import SamplerPrograms, likelihood_shape_spec
+    from bayesian_inference_tpu_torch.models.emulator import fit_emulators
+    from bayesian_inference_tpu_torch.pipeline.configs import EmulationConfig
+    from bayesian_inference_tpu_torch.utils import flops
+
+    observables, mcmc = data["observables"], data["mcmc"]
+    config = production_config(WORK_DIR, data["table_dir"], N_WALKERS, N_BURN, N_STEPS, PROGRAM_FIT["n_restarts"])
+    emu = EmulationConfig.from_config_file(ANALYSIS, PARAMETERIZATION, config["analyses"][ANALYSIS], config=config)
+    artifacts = fit_emulators(emu, seed=1, n_opt_iters=PROGRAM_FIT["n_opt_iters"], device=device,
+                              observables=observables, write=False)
+    box = mcmc.parameterization_spec()
+    lo, hi = np.asarray(box["min"], float), np.asarray(box["max"], float)
+    ndim, W = lo.size, N_WALKERS
+    data_kw = dict(observable_filter=emu.observable_filter, observables=observables)
+    experimental = obs_io.data_array_from_h5(mcmc.output_dir, mcmc.observables_filename, **data_kw)
+    P = observables["Design_validation"].shape[0]
+    y_batch = np.stack([obs_io.data_array_from_h5(mcmc.output_dir, mcmc.observables_filename, pseudodata_index=i,
+                                                  rng=np.random.default_rng(i), **data_kw)["y"] for i in range(P)])
+    peak_tflops = flops.device_peak_tflops(device)
+    smi = nvidia_smi_line()
+    kernel_of = {"block": "fused_block_mvn", "lowrank": "block_mvn"}
+    results = {}
+
+    for mode in ("block", "lowrank"):
+        like1 = lik.build_likelihood(emu, artifacts, experimental, lo, hi, mode=mode, device=device,
+                                     observables=observables)
+        spec = likelihood_shape_spec(emu, lo, hi, mode=mode, device=device, observables=observables)
+        dt = like1.theta_min.dtype
+        if mode == "block":
+            d0 = tuple(torch.tensor(d, dtype=dt, device=device)
+                       for d in lik.pad_residual_offsets(emu, artifacts, y_batch, observables))
+        else:
+            d0 = torch.tensor(lik.residual_offsets_flat(emu, artifacts, y_batch, observables), dtype=dt, device=device)
+        step_flops = flops.mcmc_step_flops(like1, W)
+        for n_points, like in ((None, like1), (P, like1.with_d0(d0))):
+            name = f"{mode}" + (f" batch P={P}" if n_points else "")
+            lead = (n_points,) if n_points else ()
+            gens = [torch.Generator(device=device).manual_seed(100 + i) for i in range(n_points or 1)]
+            draw_from = gens if n_points else gens[0]
+            x0 = like.theta_min + (like.theta_max - like.theta_min) * torch.rand(
+                (*lead, W, ndim), generator=gens[0], dtype=dt, device=device)
+            fn = like.log_posterior
+            eager_chunk = stretch.run_chunk_batched if n_points else stretch.run_chunk
+            pregen = stretch.pregen_rands_batched if n_points else stretch.pregen_rands
+            rands = pregen(PROGRAM_CHECK_STEPS, W, draw_from, dt)
+            state0 = stretch.init_state(fn, x0)
+            eager = eager_chunk(state0, fn, PROGRAM_CHECK_STEPS, rands=rands)
+
+            # Two programs in turn: captured on the fitted likelihood, and
+            # captured on the placeholder and then fed the fitted one (the
+            # operand style).
+            torch.cuda.synchronize()
+            base_bytes = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            same = {}
+            for origin, like_spec in (("fitted", like), ("placeholder", spec)):
+                programs = SamplerPrograms(like_spec, W, ndim, [PROGRAM_TIMED_STEPS], n_points=n_points)
+                programs.compile()
+                check(programs.serves(like, W, ndim, n_points),
+                      f"programs {name}: the {origin} capture does not serve the fitted likelihood's shapes")
+                state_p = programs.init(like, x0)
+                check(bool(torch.equal(state_p.log_prob, state0.log_prob)), f"programs {name}: init differs")
+                reset(kernels)
+                out = programs.chunk(state_p, like, PROGRAM_CHECK_STEPS, rands=rands)
+                torch.cuda.synchronize()
+                launches = counts(kernels)
+                same[origin] = same_chunk(out, eager)
+                check(launches[kernel_of[mode]] == 2 * PROGRAM_CHECK_STEPS and sum(launches.values()) ==
+                      2 * PROGRAM_CHECK_STEPS, f"programs {name} ({origin}): {launches} launches counted over "
+                      f"{PROGRAM_CHECK_STEPS} replayed steps, expected {2 * PROGRAM_CHECK_STEPS} of {kernel_of[mode]}")
+                if origin == "fitted":
+                    del programs, out  # one program alive at a time: the peak below is one program's
+            capture_s = programs.compile_seconds
+
+            # In turns: eager, program, program, eager; draws from the
+            # generator inside each run, as the runners make them.
+            def run_eager():
+                eager_chunk(state0, fn, PROGRAM_EAGER_STEPS, draw_from)
+
+            def run_program():
+                programs.chunk(state0, like, PROGRAM_TIMED_STEPS, generator=draw_from)
+
+            run_program()  # the first replays after a capture
+            turns = [wall_ms_per_step(run_eager, PROGRAM_EAGER_STEPS), wall_ms_per_step(run_program, PROGRAM_TIMED_STEPS),
+                     wall_ms_per_step(run_program, PROGRAM_TIMED_STEPS), wall_ms_per_step(run_eager, PROGRAM_EAGER_STEPS)]
+            peak_bytes = torch.cuda.max_memory_allocated() - base_bytes
+            eager_ms, program_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            # Busy share: device time per step under the profiler over the
+            # wall time per step of the turns above, taken without it.
+            profiled = {"eager": device_ms_per_step(lambda: eager_chunk(state0, fn, PROGRAM_PROFILED_STEPS, draw_from),
+                                                    PROGRAM_PROFILED_STEPS),
+                        "program": device_ms_per_step(lambda: programs.chunk(state0, like, PROGRAM_PROFILED_STEPS,
+                                                                             generator=draw_from),
+                                                      PROGRAM_PROFILED_STEPS)}
+            busy = {k: v[0] for k, v in profiled.items()}
+            wall = {"eager": eager_ms, "program": program_ms}
+            busy_text = ", ".join(
+                f"{k} not measured (the profiler saw no device time)" if v is None
+                else f"{k} {v:.4f} ms/step = {v / wall[k]:.1%} of its wall time" for k, v in busy.items())
+            points = n_points or 1
+            tflops = points * step_flops / (program_ms * 1e-3) / 1e12
+            print(f"programs {name}: {W} walkers, {PROGRAM_CHECK_STEPS} steps program vs eager bit-equal: captured on "
+                  f"the fitted likelihood {same['fitted']}, on the placeholder {same['placeholder']}; launches counted "
+                  f"through replays: {launches}; in turns (eager {PROGRAM_EAGER_STEPS}, program {PROGRAM_TIMED_STEPS}, "
+                  f"program, eager steps) ms/step " + " / ".join(f"{x:.4f}" for x in turns)
+                  + f"; eager {eager_ms:.4f} ms/step = {points * 1e3 / eager_ms:.1f} "
+                  f"{'point-' if n_points else ''}steps/s, program {program_ms:.4f} ms/step = "
+                  f"{points * 1e3 / program_ms:.1f} {'point-' if n_points else ''}steps/s ({eager_ms / program_ms:.2f}x); "
+                  f"step FLOPs {points * step_flops / 1e6:.1f} MFLOP -> {tflops:.3f} TFLOP/s, "
+                  f"{tflops / peak_tflops:.2%} of the FP32 peak {peak_tflops:.0f} TFLOP/s; device busy (profiler, "
+                  f"{PROGRAM_PROFILED_STEPS} steps): {busy_text}; capture {capture_s:.3f} s; "
+                  f"peak bytes above the {base_bytes / 1e6:.1f} MB held before (one program with its buffers for "
+                  f"{PROGRAM_TIMED_STEPS}-step chunks, its graph's pool, a chunk's draws and outputs) "
+                  f"{peak_bytes / 1e6:.1f} MB; card: {smi}",
+                  flush=True)
+            for k, (_, kernels_text) in profiled.items():
+                if kernels_text:
+                    print(f"programs {name}, {k}: device time by kernel over {PROGRAM_PROFILED_STEPS} profiled steps, "
+                          f"ms/step (launches/step): {kernels_text}", flush=True)
+            for origin, eq in same.items():
+                check(all(eq.values()), f"programs {name}: captured on the {origin} likelihood, not bit-equal to the "
+                                        f"eager loop: {eq}")
+            results[name] = {"eager_ms_per_step": eager_ms, "program_ms_per_step": program_ms, "turns_ms": turns,
+                             "capture_s": capture_s, "peak_bytes": peak_bytes, "step_mflop": points * step_flops / 1e6,
+                             "device_busy_ms_per_step": busy}
+            del programs, eager, out, rands
+    return results
+
+
+def flops_text(step_flops: float, steps_per_s: float, device) -> str:
+    """A sampler step's analytic FLOPs (utils/flops.py) and, at
+    ``steps_per_s``, the rate reached and its share of the card's FP32 peak."""
+    from bayesian_inference_tpu_torch.utils import flops
+
+    peak = flops.device_peak_tflops(device)
+    tflops = step_flops * steps_per_s / 1e12
+    return (f"step FLOPs {step_flops / 1e6:.1f} MFLOP, at {steps_per_s:.1f} steps/s {tflops:.3f} TFLOP/s = "
+            f"{tflops / peak:.2%} of the FP32 peak {peak:.0f} TFLOP/s")
+
+
+def phase_slice(device, kernels, data: dict, n_opt_iters: int = N_OPT_ITERS, n_check: int = 64) -> tuple[dict, dict]:
+    """The main path at production width: fit -> likelihood -> sampler.
+    Returns (kernel launches, what later phases reuse: emulators, observables,
+    configs and the production chain)."""
+    from bayesian_inference_tpu_torch.io import observables as obs_io
+    from bayesian_inference_tpu_torch.mcmc.likelihood import build_likelihood
+    from bayesian_inference_tpu_torch.mcmc.runner import run_mcmc
+    from bayesian_inference_tpu_torch.models.emulator import fit_emulators, posterior_from_artifact
+    from bayesian_inference_tpu_torch.models.gp import _LOG_2PI
+    from bayesian_inference_tpu_torch.ops.fused_mvn import fused_block_mvn_buckets_plain
+    from bayesian_inference_tpu_torch.ops.gram import train_gram
+    from bayesian_inference_tpu_torch.utils import flops
+
+    observables, emu, mcmc = data["observables"], data["emu"], data["mcmc"]
+    n_restarts, n_walkers, n_burn, n_steps = N_RESTARTS, N_WALKERS, N_BURN, N_STEPS
 
     reset(kernels)
     with count_evaluations() as evals, count_k3_batches() as k3_batches:
@@ -800,7 +1026,8 @@ def phase_slice(device, kernels, n_restarts: int = N_RESTARTS, n_opt_iters: int 
     print(f"slice check: fitted LML vs float64 recompute max |delta| {lml_delta:.4g} nat (tol {LML_TOL_NAT}); "
           f"log_posterior at "
           f"{n_check} posterior points, f32 kernels vs float64 plain: max err / max|lp| {lp_rel:.3g} "
-          f"(tol {LOGP_TOL})", flush=True)
+          f"(tol {LOGP_TOL}); " + flops_text(flops.mcmc_step_flops(likes[torch.float32], n_walkers),
+                                             n_steps / timings["production"], device), flush=True)
     check(bool(torch.isfinite(lp).all()), "slice: non-finite log_posterior at posterior points")
     check(lp_rel <= LOGP_TOL, f"slice: log_posterior differs from the float64 plain path by {lp_rel:.3g}")
     reuse = {"emu": emu, "artifacts": artifacts, "observables": observables, "experimental": experimental,
@@ -814,6 +1041,7 @@ def phase_lowrank(device, kernels, s: dict, n_check: int = 64) -> dict:
     ``run_mcmc(mode="lowrank")`` at 100 walkers."""
     from bayesian_inference_tpu_torch.mcmc.likelihood import build_likelihood
     from bayesian_inference_tpu_torch.mcmc.runner import run_mcmc
+    from bayesian_inference_tpu_torch.utils import flops
 
     box = s["box"]
     t = time.perf_counter()
@@ -845,7 +1073,9 @@ def phase_lowrank(device, kernels, s: dict, n_check: int = 64) -> dict:
     timings = out["timings"]
     print("lowrank run_mcmc phases (s): " + ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
           + f"; {N_WALKERS} walkers x ({N_BURN} burn-in + {N_STEPS}) steps, "
-          f"{N_STEPS / timings['production']:.1f} production steps/s; kernel launches {launches}; "
+          f"{N_STEPS / timings['production']:.1f} production steps/s; "
+          + flops_text(flops.mcmc_step_flops(like, N_WALKERS), N_STEPS / timings["production"], device)
+          + f"; kernel launches {launches}; "
           f"log-probs finite: {bool(np.isfinite(logp).all())}; NaN log-probs {int(np.isnan(logp).sum())}; "
           f"mean acceptance {af:.4f}; split-R-hat max {float(out['split_rhat'].max()):.4f}", flush=True)
     check(launches["block_mvn"] > 0, f"lowrank: the tiny-MVN kernel never launched: {launches}")
@@ -1000,9 +1230,10 @@ class Interrupted(Exception):
 
 
 def interrupt_after(module, name: str, n_calls: int):
-    """Replace ``module.<name>`` by a wrapper that raises ``Interrupted`` on
-    its call after ``n_calls`` calls, as a run killed during that chunk would
-    stop; returns a function that puts the original back."""
+    """Replace ``module.<name>`` (a module's function or a class's method) by
+    a wrapper that raises ``Interrupted`` on its call after ``n_calls`` calls,
+    as a run killed during that chunk would stop; returns a function that
+    puts the original back."""
     inner = getattr(module, name)
     calls = []
 
@@ -1060,6 +1291,7 @@ def phase_steer(device, kernels) -> dict:
     import shutil
 
     from bayesian_inference_tpu_torch.mcmc import runner
+    from bayesian_inference_tpu_torch.mcmc.programs import SamplerPrograms
     from bayesian_inference_tpu_torch.pipeline.configs import MCMCConfig
     from bayesian_inference_tpu_torch.pipeline.steer import SteerAnalysis
 
@@ -1122,7 +1354,7 @@ def phase_steer(device, kernels) -> dict:
         again = run(STEER_CHECKPOINT_EVERY)
         prod["chunked"].append(again["timings"]["production"])
     prod["single"].append(run(None)["timings"]["production"])
-    run_interrupted(runner, "run_chunk", 2 + 2, lambda: run(STEER_CHECKPOINT_EVERY))
+    run_interrupted(SamplerPrograms, "chunk", 2 + 2, lambda: run(STEER_CHECKPOINT_EVERY))
     resumed = run(STEER_CHECKPOINT_EVERY)
     same = {key: bool(np.array_equal(resumed[key], mcmc[key]) and np.array_equal(again[key], mcmc[key]))
             for key in ("chain", "log_prob", "acceptance_fraction")}
@@ -1147,7 +1379,7 @@ def phase_steer(device, kernels) -> dict:
     batch = dict(seed=0, device=device, emulation_results=result["emulation"], observables=result["preprocessed"],
                  write=False, checkpoint_every=cadence)
     whole = runner.run_closure_batch(closure_config, indices, **batch)
-    run_interrupted(runner, "run_chunk_batched", 2 + 2,
+    run_interrupted(SamplerPrograms, "chunk", 2 + 2,
                     lambda: runner.run_closure_batch(closure_config, indices, **batch))
     back = runner.run_closure_batch(closure_config, indices, **batch)
     same = {key: all(np.array_equal(back[i][key], whole[i][key]) for i in indices)
@@ -1204,8 +1436,10 @@ def main() -> int:
     k4, *k4_other = phase_k4(device)
     k1_k160, k1_dense = phase_k1_widths(device)
     k4_dense = phase_k4_wide(device)
+    data = production_data()
+    program_rates = phase_programs(device, kernels, data)
     path_launches = []
-    launches, reuse = phase_slice(device, kernels)
+    launches, reuse = phase_slice(device, kernels, data)
     path_launches.append(launches)
     path_launches.append(phase_lowrank(device, kernels, reuse))
     for mode in ("lowrank", "block"):
@@ -1218,6 +1452,7 @@ def main() -> int:
           f"batches, steer): {total}; whole script {time.perf_counter() - t_start:.1f} s", flush=True)
     print("dense routes and predict (no kernel; dense as in JAX): "
           + json.dumps({"k1_nb56": k1_dense, "k4_k72": k4_dense, "predict": predict_times}), flush=True)
+    print("sampler programs beside the eager loop: " + json.dumps(program_rates), flush=True)
 
     record = {"kernels": [
         {"name": "diag_chol_inv", "route": "cuda",

@@ -71,3 +71,49 @@ def read_dict_from_h5(input_dir: str, filename: str, verbose: bool = True) -> di
         logger.info(f"Loading results from {input_dir}/{filename}...")
     with h5py.File(os.path.join(input_dir, filename), "r") as f:
         return _load_group(f)
+
+
+def append_time_series(
+    output_dir: str,
+    filename: str,
+    slabs: Mapping[str, np.ndarray],
+    truncate_to: int | None = None,
+) -> int:
+    """Append slabs along axis 0 to resizable datasets (created on first use),
+    so a long chain can go to disk chunk by chunk. ``truncate_to`` first cuts
+    every named dataset to that length (drops slabs written after the last
+    durable checkpoint). Returns the resulting length of the last dataset
+    named. Datasets made this way read back through ``read_dict_from_h5``.
+    """
+    import h5py
+
+    os.makedirs(output_dir, exist_ok=True)
+    path = os.path.join(output_dir, filename)
+    mode = "a" if os.path.exists(path) else "w"
+    length = 0
+    with h5py.File(path, mode) as f:
+        for key, slab in slabs.items():
+            slab = np.asarray(slab)
+            if key not in f:
+                f.create_dataset(
+                    key, data=slab, maxshape=(None, *slab.shape[1:]),
+                    chunks=(max(1, min(4096, slab.shape[0])), *slab.shape[1:]),
+                )
+            else:
+                ds = f[key]
+                n = truncate_to if truncate_to is not None else ds.shape[0]
+                ds.resize(n + slab.shape[0], axis=0)
+                ds[n : n + slab.shape[0]] = slab
+            length = f[key].shape[0]
+    return length
+
+
+def time_series_length(output_dir: str, filename: str, key: str) -> int:
+    """Length of a streamed dataset (0 when the file or dataset is missing)."""
+    import h5py
+
+    path = os.path.join(output_dir, filename)
+    if not os.path.exists(path):
+        return 0
+    with h5py.File(path, "r") as f:
+        return int(f[key].shape[0]) if key in f else 0

@@ -115,6 +115,30 @@ def design_array_from_h5(
     return observables["Design_validation" if validation_set else "Design"]
 
 
+def data_dict_from_h5(
+    output_dir: str,
+    filename: str,
+    observable_table_dir: str | None = None,
+    observables: dict[str, Any] | None = None,
+) -> dict[str, Any]:
+    """The experimental-data dict {label: {xmin, xmax, y, y_err}}; with
+    ``observable_table_dir``, cross-checked against the original
+    ``Data/Data__<label>.dat`` tables (a mismatch raises ValueError). A
+    pre-read ``observables`` dict skips the h5 read."""
+    if observables is None:
+        observables = read_observables(output_dir, filename)
+    data = observables["Data"]
+    if observable_table_dir:
+        import os
+
+        for label, entry in data.items():
+            table = np.loadtxt(os.path.join(observable_table_dir, "Data", f"Data__{label}.dat"), ndmin=2)
+            for col, key in enumerate(("xmin", "xmax", "y", "y_err")):
+                if not np.allclose(entry[key], table[:, col]):
+                    raise ValueError(f"{filename}: Data/{label}/{key} differs from its table in {observable_table_dir}")
+    return data
+
+
 def data_array_from_h5(
     output_dir: str,
     filename: str,
@@ -151,3 +175,44 @@ def data_array_from_h5(
     data = {"y": np.concatenate(ys), "y_err": np.concatenate(yerrs)}
     logger.info(f"Data vector shape (n_features,): {data['y'].shape}")
     return data
+
+
+def observable_dict_from_matrix(
+    Y: npt.NDArray[np.float64],
+    observables: Mapping[str, Any],
+    cov: npt.NDArray[np.float64] | None = None,
+    validation_set: bool = False,
+    observable_filter: ObservableFilter | None = None,
+) -> dict[str, dict[str, npt.NDArray[np.float64]]]:
+    """Unstack a (n_samples, n_features) matrix into per-observable blocks.
+
+    Returns {'central_value': {label: (n_samples, n_bins)}, 'cov': {label:
+    (n_samples, n_bins, n_bins)}} (cov only when given; the cross-observable
+    terms are dropped, as in the reference).
+    """
+    if cov is not None and isinstance(cov, np.ndarray) and cov.size == 0:
+        cov = None
+    key = "Prediction_validation" if validation_set else "Prediction"
+    labels = sorted_observable_list_from_dict(observables, observable_filter=observable_filter)
+
+    out: dict[str, dict[str, npt.NDArray[np.float64]]] = {"central_value": {}}
+    if cov is not None:
+        out["cov"] = {}
+    start = 0
+    for lbl in labels:
+        n_bins = np.atleast_2d(observables[key][lbl]["y"]).shape[0]
+        out["central_value"][lbl] = Y[:, start : start + n_bins]
+        if cov is not None:
+            out["cov"][lbl] = cov[:, start : start + n_bins, start : start + n_bins]
+        start += n_bins
+    if start != Y.shape[1]:
+        raise ValueError(f"bin count mismatch: the observables hold {start} bins, the matrix {Y.shape[1]} columns")
+    return out
+
+
+def observable_matrix_from_dict(
+    Y_dict: Mapping[str, Mapping[str, npt.NDArray[np.float64]]],
+    values_to_return: str = "central_value",
+) -> npt.NDArray[np.float64]:
+    """Re-stack per-observable blocks (already in sorted order) into one matrix."""
+    return np.concatenate([np.asarray(v) for v in Y_dict[values_to_return].values()], axis=1)

@@ -11,7 +11,10 @@ StretchMove with its defaults:
 
 All draws of a chunk are generated up front from a ``torch.Generator`` (or
 injected, so a test can hand both packages the same numbers); the steps then
-run as device ops with no host round trip.
+run as device ops with no host round trip. ``run_chunk`` dispatches them one
+op at a time from a Python loop; the runners go through
+``mcmc/programs.SamplerPrograms`` instead, which on CUDA replays the same
+step (``step_at``) as a captured graph.
 
 Batched ensembles: P independent samplers (the closure test's validation
 points) advance together. Every state leaf gets a leading P axis, each point
@@ -134,16 +137,58 @@ def init_state_batched(log_prob_fn: LogProbFn, x0: torch.Tensor) -> EnsembleStat
     return init_state(log_prob_fn, x0)
 
 
+def chunk_outputs(n_steps: int, state: EnsembleState):
+    """Empty per-step outputs of ``n_steps`` steps from ``state``: chain
+    (n, ..., W, d), log-probs (n, ..., W) and mean acceptance (n, ...)."""
+    dt, dev = state.coords.dtype, state.coords.device
+    return (
+        torch.empty((n_steps, *state.coords.shape), dtype=dt, device=dev),
+        torch.empty((n_steps, *state.log_prob.shape), dtype=state.log_prob.dtype, device=dev),
+        torch.empty((n_steps, *state.log_prob.shape[:-1]), dtype=dt, device=dev),
+    )
+
+
+def step_at(state: EnsembleState, rands: dict[str, torch.Tensor], outputs, t: torch.Tensor,
+            log_prob_fn: LogProbFn) -> EnsembleState:
+    """The ensemble step at index ``t``, a one-element int64 tensor on the
+    state's device: reads row ``t`` of a chunk's draws, writes row ``t`` of
+    the chunk's ``outputs`` (``chunk_outputs`` layout) and returns the new
+    state. The index is a tensor so that the eager loop and a captured device
+    program (mcmc/programs.py) run the same ops."""
+    chain, log_prob, acc = outputs
+    new = _step_with_rands(state, {k: v.index_select(0, t)[0] for k, v in rands.items()}, log_prob_fn)
+    chain.index_copy_(0, t, new.coords[None])
+    log_prob.index_copy_(0, t, new.log_prob[None])
+    acc.index_copy_(0, t, (new.n_accepted - state.n_accepted).to(acc.dtype).mean(dim=-1)[None])
+    return new
+
+
 def _run_steps(state: EnsembleState, log_prob_fn: LogProbFn, n_steps: int, rands: dict[str, torch.Tensor]):
-    chain = torch.empty((n_steps, *state.coords.shape), dtype=state.coords.dtype, device=state.coords.device)
-    log_prob = torch.empty((n_steps, *state.log_prob.shape), dtype=state.log_prob.dtype, device=state.coords.device)
-    acc = torch.empty((n_steps, *state.log_prob.shape[:-1]), dtype=state.coords.dtype, device=state.coords.device)
-    for t in range(n_steps):
-        new = _step_with_rands(state, {k: v[t] for k, v in rands.items()}, log_prob_fn)
-        chain[t], log_prob[t] = new.coords, new.log_prob
-        acc[t] = (new.n_accepted - state.n_accepted).to(acc.dtype).mean(dim=-1)
-        state = new
-    return state, (chain, log_prob, acc)
+    outputs = chunk_outputs(n_steps, state)
+    t = torch.zeros(1, dtype=torch.long, device=state.coords.device)
+    for _ in range(n_steps):
+        state = step_at(state, rands, outputs, t, log_prob_fn)
+        t += 1
+    return state, outputs
+
+
+def step(
+    state: EnsembleState,
+    log_prob_fn: LogProbFn,
+    generator: torch.Generator | None = None,
+    rands: dict[str, torch.Tensor] | None = None,
+) -> EnsembleState:
+    """One full ensemble step (both halves updated).
+
+    The step's draws come from ``rands`` when given (one step's slice of the
+    ``pregen_rands`` layout: perm/inv (W,), u_z/partners/u_acc (2, W // 2)),
+    else from ``generator``.
+    """
+    if rands is None:
+        if generator is None:
+            raise ValueError("step needs a generator or injected draws")
+        rands = {k: v[0] for k, v in pregen_rands(1, state.coords.shape[0], generator, state.coords.dtype).items()}
+    return _step_with_rands(state, rands, log_prob_fn)
 
 
 def run_chunk(
@@ -185,3 +230,45 @@ def run_chunk_batched(
             raise ValueError("run_chunk_batched needs one generator per point or injected draws")
         rands = pregen_rands_batched(n_steps, states.coords.shape[1], generators, states.coords.dtype)
     return _run_steps(states, log_prob_fn, n_steps, rands)
+
+
+def run_ensemble(
+    log_prob_fn: LogProbFn,
+    x0: torch.Tensor,
+    n_steps: int,
+    generator: torch.Generator | None = None,
+    rands: dict[str, torch.Tensor] | None = None,
+    chunk_size: int | None = None,
+) -> dict[str, torch.Tensor]:
+    """Run the sampler for ``n_steps`` from the ensemble ``x0`` (W, d).
+
+    ``chunk_size`` splits the run into chunks of that many steps (it must
+    divide ``n_steps``), each pregenerating its own draws from ``generator``;
+    None runs one chunk. ``rands`` injects the draws of all ``n_steps``
+    instead (``pregen_rands`` layout).
+
+    Returns {'chain': (n_steps, W, d), 'log_prob': (n_steps, W),
+    'acceptance_trace': (n_steps,) per-step mean acceptance, 'coords',
+    'final_log_prob', 'acceptance_fraction'}, as the JAX package's
+    ``run_ensemble`` does.
+    """
+    if x0.shape[0] % 2:
+        raise ValueError("n_walkers must be even")
+    chunk_size = n_steps if chunk_size is None else chunk_size
+    if chunk_size < 1 or n_steps % chunk_size:
+        raise ValueError(f"chunk_size {chunk_size} must divide n_steps {n_steps}")
+    state = init_state(log_prob_fn, x0)
+    pieces = []
+    for start in range(0, n_steps, chunk_size):
+        r = None if rands is None else {k: v[start:start + chunk_size] for k, v in rands.items()}
+        state, ys = run_chunk(state, log_prob_fn, chunk_size, generator=generator, rands=r)
+        pieces.append(ys)
+    chain, log_prob, acc = (p[0] if len(p) == 1 else torch.cat(p) for p in zip(*pieces))
+    return {
+        "chain": chain,
+        "log_prob": log_prob,
+        "acceptance_trace": acc,
+        "coords": state.coords,
+        "final_log_prob": state.log_prob,
+        "acceptance_fraction": state.n_accepted.to(x0.dtype) / n_steps,
+    }

@@ -23,7 +23,9 @@ from bayesian_inference_tpu_torch.ops.blocked_cholesky import chol_inv_batched
 from bayesian_inference_tpu_torch.ops.gram import (
     KernelConfig,
     KernelParams,
+    cross_covariance,
     matern_from_sqdist,
+    pairwise_sqdiff,
     prior_variance,
     train_gram,
     train_gram_from_sqdiff,
@@ -104,6 +106,24 @@ def log_marginal_likelihood_matmul(
     )
 
 
+def log_marginal_likelihood_sqdiff(
+    cfg: KernelConfig, params: KernelParams, D2: torch.Tensor, y: torch.Tensor, alpha_jitter: float
+) -> torch.Tensor:
+    """LML from precomputed ``pairwise_sqdiff(X)``, for one GP (``y`` (N,))
+    or a stack (``y`` (..., N)). The JAX package keeps a library-Cholesky form
+    under this name beside its matmul form; the port has the one blocked
+    factorisation, so this is ``log_marginal_likelihood_matmul``."""
+    return log_marginal_likelihood_matmul(cfg, params, D2, y, alpha_jitter)
+
+
+def log_marginal_likelihood(
+    cfg: KernelConfig, params: KernelParams, X: torch.Tensor, y: torch.Tensor, alpha_jitter: float
+) -> torch.Tensor:
+    """LML of one GP, or a stack of GPs, on the design ``X`` (N, d);
+    differentiable in ``params``. Device and dtype follow the tensors."""
+    return log_marginal_likelihood_matmul(cfg, params, pairwise_sqdiff(X), y, alpha_jitter)
+
+
 @dataclass
 class GPPosterior:
     """Cached factorisation of a stack of k GPs for batched prediction.
@@ -135,6 +155,33 @@ def posterior_from_params_matmul(
     return GPPosterior(
         params=params, X=X, alpha=alpha, Kinv=Kinv, prior_var=prior_variance(cfg, params), lml=lml,
     )
+
+
+def posterior_from_params(
+    cfg: KernelConfig, params: KernelParams, X: torch.Tensor, y: torch.Tensor, alpha_jitter: float
+) -> GPPosterior:
+    """Posterior of one GP (``params`` leaves without a batch axis, ``y``
+    (N,)) or of a stack, on the design ``X`` (N, d): the JAX package's name
+    for what the port computes through the blocked factorisation."""
+    return posterior_from_params_matmul(cfg, params, X, y, alpha_jitter)
+
+
+def predict(cfg: KernelConfig, post: GPPosterior, theta: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Posterior mean and variance at ``theta`` (B, d) of one GP -> ((B,), (B,)),
+    or of a stack of k GPs -> ((k, B), (k, B)): the cross-covariance from
+    explicit scaled differences (ops/gram.cross_covariance), not the shared
+    squared differences of ``predict_all_shared``."""
+    ks = cross_covariance(cfg, post.params, theta, post.X)  # (..., B, N)
+    mean = (ks @ post.alpha[..., None])[..., 0]
+    var = post.prior_var[..., None] - ((ks @ post.Kinv) * ks).sum(-1)
+    return mean, torch.clamp(var, min=0.0)
+
+
+def predict_all(cfg: KernelConfig, posts: GPPosterior, theta: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``predict`` of k stacked GPs, laid out ((B, k), (B, k)) as
+    ``predict_all_shared`` returns them."""
+    mean, var = predict(cfg, posts, theta)
+    return mean.mT, var.mT
 
 
 def predict_all_shared(

@@ -30,6 +30,18 @@ from bayesian_inference_tpu_torch.ops.gram import KernelConfig, KernelParams, pa
 HALVING_ITERS, HALVING_KEEP = 15, 3
 
 
+def pack_params(cfg: KernelConfig, params: KernelParams) -> torch.Tensor:
+    """The active hyperparameters flattened to sklearn's kernel.theta order,
+    (..., P): [log length scales..., log constant?, log noise?]; the inverse
+    of ``unpack_params``."""
+    parts = [params.log_length_scale]
+    if cfg.with_constant:
+        parts.append(params.log_constant[..., None])
+    if cfg.with_noise:
+        parts.append(params.log_noise[..., None])
+    return torch.cat(parts, dim=-1)
+
+
 def unpack_params(cfg: KernelConfig, flat: torch.Tensor, ndim: int) -> KernelParams:
     """(..., P) in sklearn's kernel.theta order [log ls..., log constant?, log noise?]."""
     zero = torch.zeros_like(flat[..., 0])

@@ -11,10 +11,17 @@ Every C entry launches on the stream it is given and returns
 ``cudaGetLastError()``; ``NativeKernel.launch`` raises if that is not 0 and
 counts the launches, so a run can show that its main path went through the
 kernel.
+
+A CUDA graph replays its captured launches without passing through ``launch``.
+``captured_launches`` records what a capture recorded per kernel (and takes
+those recordings back out of the counts: a capture launches nothing);
+``count_replays`` adds them for every replay, so the counts stay the number
+of times each kernel ran on the card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -35,6 +42,9 @@ NVCC_FLAGS = [
 P = ctypes.c_void_p
 I = ctypes.c_int
 
+# Every NativeKernel of the process, in creation order (one per ops module).
+KERNELS: list["NativeKernel"] = []
+
 
 class NativeKernel:
     """One CUDA source, its C entry points (name -> ctypes argtypes), and a
@@ -47,6 +57,7 @@ class NativeKernel:
         self.build_log = ""
         self.build_seconds = 0.0
         self._lib: ctypes.CDLL | None = None
+        KERNELS.append(self)
 
     def library_path(self) -> Path:
         """The library's path, named by a hash of the source and of every
@@ -92,6 +103,28 @@ class NativeKernel:
         if rc != 0:
             raise RuntimeError(f"{entry} failed: {lib.error_string(rc).decode()} (cudaError {rc})")
         self.launches += 1
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Around a stream capture: yields a dict that, when the block ends, maps
+    each kernel to the launches the capture recorded. The counts themselves
+    are put back to what they were, since a capture runs nothing."""
+    before = [(k, k.launches) for k in KERNELS]
+    record: dict[NativeKernel, int] = {}
+    try:
+        yield record
+    finally:
+        for k, n in before:
+            if k.launches != n:
+                record[k] = k.launches - n
+                k.launches = n
+
+
+def count_replays(record: dict["NativeKernel", int], replays: int) -> None:
+    """Count ``replays`` replays of a graph whose capture recorded ``record``."""
+    for k, n in record.items():
+        k.launches += n * replays
 
 
 def build_all(kernels) -> None:

@@ -216,6 +216,8 @@ class SteerAnalysis:
                 from bayesian_inference_tpu_torch.mcmc.runner import run_mcmc
 
                 mcmc_config = self._configs(MCMCConfig, *args)
+                # run_mcmc builds its sampler programs (mcmc/programs.py) from
+                # the likelihood it builds, sized for this cadence.
                 result["mcmc"] = run_mcmc(
                     mcmc_config, device=self.device, emulation_results=emulation_results, observables=observables,
                     write=self.write, checkpoint_every=mcmc_config.checkpoint_every,

@@ -409,7 +409,9 @@ def test_run_mcmc_resume_is_bit_exact_on_the_card(card_analysis, monkeypatch):
     before = fused_mvn.KERNEL.launches
     whole = runner.run_mcmc(mcmc, **kw)
     assert fused_mvn.KERNEL.launches > before
-    inner, calls = runner.run_chunk, []
+    from bayesian_inference_tpu_torch.mcmc.programs import SamplerPrograms
+
+    inner, calls = SamplerPrograms.chunk, []
 
     def interrupted(*args, **kwargs):
         calls.append(1)
@@ -417,7 +419,7 @@ def test_run_mcmc_resume_is_bit_exact_on_the_card(card_analysis, monkeypatch):
             raise KeyboardInterrupt("interrupted")
         return inner(*args, **kwargs)
 
-    monkeypatch.setattr(runner, "run_chunk", interrupted)
+    monkeypatch.setattr(SamplerPrograms, "chunk", interrupted)
     with pytest.raises(KeyboardInterrupt):
         runner.run_mcmc(mcmc, **kw)
     monkeypatch.undo()
@@ -425,6 +427,71 @@ def test_run_mcmc_resume_is_bit_exact_on_the_card(card_analysis, monkeypatch):
     for key in ("chain", "log_prob", "acceptance_fraction", "split_rhat"):
         np.testing.assert_array_equal(resumed[key], whole[key], err_msg=key)
     assert np.isfinite(whole["log_prob"]).all()
+
+
+@pytest.mark.parametrize("mode,n_points", [("block", None), ("lowrank", None), ("block", 3), ("lowrank", 3)])
+def test_sampler_program_equals_the_eager_loop_on_the_card(card_analysis, mode, n_points):
+    """On the card the captured program (one CUDA graph per step, captured on
+    the zero-valued placeholder likelihood and then fed the fitted one) gives
+    the chain, log-probs, acceptance and final state of the eager loop bit
+    for bit, for one ensemble and for a batch of points with their own
+    offsets; a chunk longer than the program's buffers runs in pieces; and
+    the kernels' launch counts follow the replays: two per step, none for
+    the capture itself."""
+    from bayesian_inference_tpu_torch.io import observables as obs_io
+    from bayesian_inference_tpu_torch.mcmc import likelihood as lik
+    from bayesian_inference_tpu_torch.mcmc import stretch
+    from bayesian_inference_tpu_torch.mcmc.programs import SamplerPrograms, likelihood_shape_spec
+    from bayesian_inference_tpu_torch.models.emulator import fit_emulators
+
+    emu, mcmc, observables = card_analysis
+    device = torch.device("cuda", 0)
+    artifacts = fit_emulators(emu, n_opt_iters=20, device=device, observables=observables, write=False)
+    box = mcmc.parameterization_spec()
+    kw = dict(observable_filter=emu.observable_filter, observables=observables)
+    exp = obs_io.data_array_from_h5(mcmc.output_dir, mcmc.observables_filename, **kw)
+    like = lik.build_likelihood(emu, artifacts, exp, box["min"], box["max"], mode=mode, device=device,
+                                observables=observables)
+    spec = likelihood_shape_spec(emu, box["min"], box["max"], mode=mode, device=device, observables=observables)
+    W, ndim, n, dt = 20, len(box["min"]), 30, like.theta_min.dtype
+    lead = ()
+    if n_points:
+        ys = np.stack([obs_io.data_array_from_h5(mcmc.output_dir, mcmc.observables_filename, pseudodata_index=i,
+                                                 rng=np.random.default_rng(i), **kw)["y"] for i in range(n_points)])
+        if mode == "block":
+            d0 = tuple(torch.tensor(d, dtype=dt, device=device)
+                       for d in lik.pad_residual_offsets(emu, artifacts, ys, observables))
+        else:
+            d0 = torch.tensor(lik.residual_offsets_flat(emu, artifacts, ys, observables), dtype=dt, device=device)
+        like, lead = like.with_d0(d0), (n_points,)
+    gens = [torch.Generator(device=device).manual_seed(5 + i) for i in range(n_points or 1)]
+    x0 = like.theta_min + (like.theta_max - like.theta_min) * torch.rand((*lead, W, ndim), generator=gens[0],
+                                                                         dtype=dt, device=device)
+    if n_points:
+        rands = stretch.pregen_rands_batched(n, W, gens, dt)
+        eager_chunk = stretch.run_chunk_batched
+    else:
+        rands = stretch.pregen_rands(n, W, gens[0], dt)
+        eager_chunk = stretch.run_chunk
+    fn = like.log_posterior
+    state0 = stretch.init_state(fn, x0)
+    ref_state, ref = eager_chunk(state0, fn, n, rands=rands)
+
+    kernel = fused_mvn.KERNEL if mode == "block" else tiny_mvn.KERNEL
+    programs = SamplerPrograms(spec, W, ndim, [12], n_points=n_points)  # 30 steps: pieces of 12, 12 and 6
+    before = kernel.launches
+    programs.compile()
+    assert programs.ok() and programs.captured
+    assert kernel.launches == before + 2 * 3  # the warm-up steps ran; the capture ran nothing
+    state = programs.init(like, x0)
+    assert torch.equal(state.log_prob, state0.log_prob)
+    before = kernel.launches
+    state, out = programs.chunk(state, like, n, rands=rands)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2 * n
+    for a, b in zip((*state, *out), (*ref_state, *ref)):
+        assert torch.equal(a, b)
+    assert torch.isfinite(out[1]).any() and 0 < int(state.n_accepted.sum()) < n * W * (n_points or 1)
 
 
 def test_cross_validation_on_the_card_launches_k3(card_analysis):

@@ -21,6 +21,7 @@ from config_factory import make_analysis_yaml
 
 from bayesian_inference_tpu_torch.io import hdf5 as thdf5
 from bayesian_inference_tpu_torch.mcmc import runner as trunner
+from bayesian_inference_tpu_torch.mcmc.programs import SamplerPrograms
 from bayesian_inference_tpu_torch.models import emulator as temulator
 from bayesian_inference_tpu_torch.pipeline import configs as tconfigs
 from bayesian_inference_tpu_torch.pipeline import steer as tsteer
@@ -42,10 +43,11 @@ def fitted(tmp_path_factory):
     return SimpleNamespace(config=tconfigs.MCMCConfig(**kw), artifacts=artifacts)
 
 
-def _interrupt_after(monkeypatch, name, n_calls):
-    """Make ``runner.<name>`` raise on its call after ``n_calls`` calls, as
-    a run killed during that chunk would stop."""
-    inner = getattr(trunner, name)
+def _interrupt_after(monkeypatch, n_calls):
+    """Make the sampler programs' ``chunk`` (every burn-in phase and
+    production chunk of both runners) raise on its call after ``n_calls``
+    calls, as a run killed during that chunk would stop."""
+    inner = SamplerPrograms.chunk
     calls = []
 
     def wrapper(*args, **kwargs):
@@ -54,7 +56,7 @@ def _interrupt_after(monkeypatch, name, n_calls):
             raise KeyboardInterrupt("interrupted")
         return inner(*args, **kwargs)
 
-    monkeypatch.setattr(trunner, name, wrapper)
+    monkeypatch.setattr(SamplerPrograms, "chunk", wrapper)
 
 
 def _tear_last_record(path):
@@ -77,7 +79,7 @@ def test_run_mcmc_resume_is_bit_exact(fitted, monkeypatch, mode, torn):
     whole = trunner.run_mcmc(r.config, **kw)
     assert not os.path.exists(path)
 
-    _interrupt_after(monkeypatch, "run_chunk", 2 + 2)  # two burn-in phases, two production chunks
+    _interrupt_after(monkeypatch, 2 + 2)  # two burn-in phases, two production chunks
     with pytest.raises(KeyboardInterrupt):
         trunner.run_mcmc(r.config, **kw)
     monkeypatch.undo()
@@ -90,8 +92,8 @@ def test_run_mcmc_resume_is_bit_exact(fitted, monkeypatch, mode, torn):
         _tear_last_record(path)
 
     calls = []
-    inner = trunner.run_chunk
-    monkeypatch.setattr(trunner, "run_chunk", lambda *a, **k: calls.append(a[2]) or inner(*a, **k))
+    inner = SamplerPrograms.chunk
+    monkeypatch.setattr(SamplerPrograms, "chunk", lambda *a, **k: calls.append(a[3]) or inner(*a, **k))
     resumed = trunner.run_mcmc(r.config, **kw)
     assert calls == [CADENCE] * (3 if torn else 2)  # production chunks only: no burn-in
     assert not os.path.exists(path)
@@ -109,7 +111,7 @@ def test_closure_batch_resume_is_bit_exact(fitted, monkeypatch):
     path = trunner._closure_checkpoint_path(r.config)
     whole = trunner.run_closure_batch(r.config, (0, 2), **kw)
     assert not os.path.exists(path)
-    _interrupt_after(monkeypatch, "run_chunk_batched", 2 + 2)
+    _interrupt_after(monkeypatch, 2 + 2)
     with pytest.raises(KeyboardInterrupt):
         trunner.run_closure_batch(r.config, (0, 2), **kw)
     monkeypatch.undo()
@@ -128,7 +130,7 @@ def test_foreign_checkpoint_restarts_fresh(fitted, monkeypatch, caplog):
     run warns, starts fresh and equals a run that found no checkpoint."""
     r = fitted
     kw = dict(device="cpu", emulation_results=r.artifacts, write=False, checkpoint_every=CADENCE)
-    _interrupt_after(monkeypatch, "run_chunk", 2 + 1)
+    _interrupt_after(monkeypatch, 2 + 1)
     with pytest.raises(KeyboardInterrupt):
         trunner.run_mcmc(r.config, seed=5, **kw)
     monkeypatch.undo()
