@@ -20,6 +20,15 @@ launch counts set to 0 just before it and read just after:
   the same shapes; the replay-aware launch counts; then both timed in turns
   (eager, program, program, eager), with the step's analytic FLOPs
   (``utils/flops.py``), the capture's seconds and the program's peak bytes;
+- the fit programs (``models/gp_fit.FitProgram``, a captured CUDA graph of
+  one L-BFGS iteration per stage shape, through which ``fit_gps`` runs every
+  stage) against the eager loop (``fit_gps(eager=True)``) at production
+  width (41 PCs x 51 restarts, 60 iterations): hyperparameters, LML, alpha
+  and K^-1 bit for bit for the default schedule, two trial steps and a
+  two-rung halving schedule; K3's launches by batch size through the
+  replays; both timed in turns with the profiler's device-busy time, the
+  kernels per iteration, capture seconds and peak bytes; and one group's
+  5-fold cross-validation eager and through the programs;
 - fit then sample: ``fit_emulators`` -> ``build_likelihood`` (block mode) ->
   ``run_mcmc``;
 - one lowrank (Woodbury) analysis: ``run_mcmc(mode="lowrank")`` on the same
@@ -37,7 +46,7 @@ its FP32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s, the H100
 SXM's published peaks) and the share of the bound it reaches: K3 at the
 fit's three batch sizes, K4 at the lowrank batch sizes and at the widest
 capacitance matrix it takes (64 PCs). The fit checks K3's launches by batch
-size; the steer prints them. In block mode every
+size, counted through the fit programs' replays; the steer prints them. In block mode every
 likelihood evaluation is one launch of K1 for all width buckets; each path
 checks that its K1 launches equal its block-mode evaluations, counted as its
 eager evaluations plus two per step a program replayed.
@@ -96,6 +105,13 @@ STEER_CV_K, STEER_CHECKPOINT_EVERY = 5, 500
 PROGRAM_FIT = {"n_restarts": 4, "n_opt_iters": 20}
 PROGRAM_CHECK_STEPS, PROGRAM_TIMED_STEPS, PROGRAM_EAGER_STEPS = 200, 2000, 500
 PROGRAM_PROFILED_STEPS = 100  # the profiler window that gives the device-busy time per step
+# The fit-programs phase: the schedules held against the eager loop beside
+# the default one, the iterations profiled per stage, and the group whose
+# 5-fold CV runs eager and through the programs (the widest: 25 PCs).
+FIT_TRIAL_STEPS = (1.0, 0.3)
+FIT_TWO_RUNGS = ((5, 8), (10, 3))
+FIT_PROFILED_ITERS = 20
+FIT_CV_GROUP = "substructure_Dz_group"
 # Production with and without chunking is timed in turns: the steer's own
 # (chunked) run, then this many (one chunk, chunked) pairs, then one chunk.
 STEER_TIMING_PAIRS = 3
@@ -279,29 +295,34 @@ def matern_blocks(B: int, n: int, device, seed: int = 0) -> torch.Tensor:
 # K3's batch sizes on the main path: the fit's exploration (41 PCs x 51
 # restarts), polish (41 x 3) and posterior (41) stages, and its launches at
 # each per fit (1 + 15, 1 + 45 and 1 LML evaluations, 4 diagonal blocks each).
+# A fit that builds its two programs first adds their warm-up iterations.
 K3_BATCHES = (41 * 51, 41 * 3, 41)
 K3_FIT_LAUNCHES = {41 * 51: 64, 41 * 3: 184, 41: 4}
+K3_BLOCKS = 4  # diagonal blocks of the N = 195 gram, padded to 256
+
+
+def k3_fit_launches_with_warmup() -> dict[int, int]:
+    """K3's launches by batch of a production fit that builds both its programs."""
+    from bayesian_inference_tpu_torch.models.gp_fit import WARMUP_ITERATIONS
+
+    warm = K3_BLOCKS * WARMUP_ITERATIONS
+    return {41 * 51: 64 + warm, 41 * 3: 184 + warm, 41: 4}
 
 
 @contextlib.contextmanager
 def count_k3_batches():
-    """Count K3 launches by batch size while the block runs."""
+    """K3's launches by batch size while the block runs, filled in when it
+    ends: the wrapper's own count by batch, which follows graph replays."""
     from collections import Counter
 
     from bayesian_inference_tpu_torch.ops import blocked_cholesky as bc
 
-    inner = bc._diag_chol_inv_cuda
+    before = Counter(bc.KERNEL.launches_by_batch)
     batches = Counter()
-
-    def counted(A):
-        batches[A.shape[0]] += 1
-        return inner(A)
-
-    bc._diag_chol_inv_cuda = counted
     try:
         yield batches
     finally:
-        bc._diag_chol_inv_cuda = inner
+        batches.update(bc.KERNEL.launches_by_batch - before)
 
 
 def phase_k3(device, reps: int = 20) -> list[dict]:
@@ -761,14 +782,11 @@ def wall_ms_per_step(fn, n_steps: int) -> float:
     return 1e3 * (time.perf_counter() - t) / n_steps
 
 
-def device_ms_per_step(fn, n_steps: int, top: int = 8) -> tuple[float | None, str]:
-    """Device-busy milliseconds per step of ``fn()``, a run of ``n_steps``
-    sampler steps: the summed duration of every kernel and copy that
-    ``torch.profiler`` saw on the card (one stream, so they do not overlap);
-    and the ``top`` kernels by that time, as "name ms/step (launches/step)".
+def profiled_device_rows(fn) -> list[tuple[float, int, str]]:
+    """(device microseconds, launches, name) of every kernel and copy that
+    ``torch.profiler`` saw on the card while ``fn()`` ran, largest first.
     Only the profiler's device rows count: a host op's row repeats the time
-    of the kernels it launched. (None, "") when the profiler reports no
-    device time."""
+    of the kernels it launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -776,8 +794,17 @@ def device_ms_per_step(fn, n_steps: int, top: int = 8) -> tuple[float | None, st
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+    return sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA), reverse=True)
+
+
+def device_ms_per_step(fn, n_steps: int, top: int = 8) -> tuple[float | None, str]:
+    """Device-busy milliseconds per step of ``fn()``, a run of ``n_steps``
+    sampler steps: the summed duration of every kernel and copy that
+    ``torch.profiler`` saw on the card (one stream, so they do not overlap);
+    and the ``top`` kernels by that time, as "name ms/step (launches/step)".
+    (None, "") when the profiler reports no device time."""
+    rows = profiled_device_rows(fn)
     busy_us = sum(us for us, _, _ in rows)
     if busy_us <= 0:
         return None, ""
@@ -932,6 +959,195 @@ def phase_programs(device, kernels, data: dict) -> dict:
     return results
 
 
+def wall_seconds(fn) -> float:
+    """Host-clock seconds of ``fn()``, the device drained before and after."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def same_posterior(a, b) -> dict[str, bool]:
+    """Bit equality of two fitted GPPosteriors."""
+    return {"log_length_scale": bool(torch.equal(a.params.log_length_scale, b.params.log_length_scale)),
+            "log_noise": bool(torch.equal(a.params.log_noise, b.params.log_noise)),
+            "lml": bool(torch.equal(a.lml, b.lml)), "alpha": bool(torch.equal(a.alpha, b.alpha)),
+            "Kinv": bool(torch.equal(a.Kinv, b.Kinv))}
+
+
+def phase_fit_programs(device, kernels, data: dict) -> dict:
+    """The fit programs against the eager loop at production width (195
+    design points, d = 6, 41 PCs x 51 restarts, 60 iterations: stage batches
+    2,091 and 123), from the same restart points: bit equality for three
+    schedules, K3's launches by batch through the replays, seconds per fit in
+    turns, the profiler's device time and kernels per iteration of each
+    stage, capture seconds and peak bytes; then one group's 5-fold CV eager
+    and through the programs. Returns the measured numbers."""
+    import dataclasses
+    import functools
+
+    from bayesian_inference_tpu_torch.models import cv, gp_fit
+    from bayesian_inference_tpu_torch.models.emulator import _prepare_group
+    from bayesian_inference_tpu_torch.ops.gram import pairwise_sqdiff
+
+    observables, emu = data["observables"], data["emu"]
+    groups = emu.emulation_groups_config
+    preps = {name: _prepare_group(g, N_OPT_ITERS, observables) for name, g in groups.items()}
+    first = next(iter(preps.values()))
+    spec = first["spec"]
+    dt = torch.float32
+    X = torch.as_tensor(first["design"], dtype=dt, device=device)
+    Y = torch.as_tensor(np.concatenate([p["Y_pca_truncated"] for p in preps.values()], axis=1), dtype=dt,
+                        device=device)
+    (N, d), k, P, R = X.shape, Y.shape[1], spec.theta0.shape[0], spec.n_restarts + 1
+    lo, hi = (torch.as_tensor(a, dtype=dt, device=device) for a in (spec.log_lo, spec.log_hi))
+    rand_logs = lo + (hi - lo) * torch.rand((k, spec.n_restarts, P), dtype=dt, device=device,
+                                            generator=torch.Generator(device=device).manual_seed(11))
+    smi = nvidia_smi_line()
+    check((k, R, spec.n_iters) == (N_PCS, N_RESTARTS + 1, N_OPT_ITERS) and gp_fit.halving_rungs(spec) == ((15, 3),),
+          f"fit programs: not the production fit: {k} PCs x {R} restarts, rungs {gp_fit.halving_rungs(spec)}")
+
+    def fit(s, eager):
+        return gp_fit.fit_gps(s, X, Y, rand_logs=rand_logs, eager=eager)
+
+    # Bit equality, K3 by batch, capture seconds and peak bytes, per schedule.
+    schedules = {"default": spec, f"trial_steps={FIT_TRIAL_STEPS}": dataclasses.replace(spec, trial_steps=FIT_TRIAL_STEPS),
+                 f"halving_schedule={FIT_TWO_RUNGS}": dataclasses.replace(spec, halving_schedule=FIT_TWO_RUNGS)}
+    results = {"card": smi, "schedules": {}}
+    for name, s in schedules.items():
+        K, rungs = len(s.trial_steps), gp_fit.halving_rungs(s)
+        stages = [(R, rungs[0][0])] + [(keep, it) for (_, keep), (it, _) in zip(rungs, rungs[1:])]
+        stages.append((rungs[-1][1], s.n_iters - sum(it for it, _ in rungs)))
+        # per stage: one eager seed evaluation at its batch, then its iterations at K times it
+        expect, expect_warm = {k: K3_BLOCKS}, {k: K3_BLOCKS}
+        for pool, iters in stages:
+            for counts_, warm in ((expect, 0), (expect_warm, gp_fit.WARMUP_ITERATIONS)):
+                counts_[k * pool] = counts_.get(k * pool, 0) + K3_BLOCKS
+                counts_[K * k * pool] = counts_.get(K * k * pool, 0) + K3_BLOCKS * (iters + warm)
+        gp_fit.clear_fit_programs()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # so that the bytes reserved below are this fit's
+        base_bytes, base_reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        built = gp_fit.fit_program_stats()["built"]
+        reset(kernels)
+        with count_k3_batches() as first_batches:
+            t_first = wall_seconds(lambda: fit(s, False))
+        peak_bytes = torch.cuda.max_memory_allocated() - base_bytes
+        reserved_bytes = torch.cuda.memory_reserved() - base_reserved
+        n_built = gp_fit.fit_program_stats()["built"] - built
+        capture_s = {p.B: p.compile_seconds for p in gp_fit._PROGRAMS.values()}
+        check(all(p.captured for p in gp_fit._PROGRAMS.values()), "fit programs: a program is not a captured graph")
+        reset(kernels)
+        with count_k3_batches() as batches:
+            program = fit(s, False)
+            torch.cuda.synchronize()
+        launches = counts(kernels)
+        eager = fit(s, True)
+        same = same_posterior(program, eager)
+        print(f"fit programs [{name}]: {k} PCs x {R} restarts x {s.n_iters} iterations, stages (pool, iterations) "
+              f"{stages}, {K} trial step(s); program vs eager fit bit-equal: {same}; K3 launches by batch through "
+              f"the replays {dict(sorted(batches.items(), reverse=True))} (expected {expect}), with the programs' "
+              f"{gp_fit.WARMUP_ITERATIONS} warm-up iterations in the first fit "
+              f"{dict(sorted(first_batches.items(), reverse=True))} (expected {expect_warm}); {n_built} graphs "
+              f"captured, capture seconds by batch {capture_s}; first fit (builds included) {t_first:.3f} s; peak "
+              f"bytes above the {base_bytes / 1e6:.1f} MB held before {peak_bytes / 1e6:.1f} MB allocated, "
+              f"{reserved_bytes / 1e6:.1f} MB more reserved after it (the graphs' pools and the cached warm-up "
+              f"blocks); card: {smi}", flush=True)
+        check(all(same.values()), f"fit programs [{name}]: not bit-equal to the eager fit: {same}")
+        check(bool(torch.isfinite(program.lml).all()), f"fit programs [{name}]: non-finite LML")
+        check(dict(batches) == expect and dict(first_batches) == expect_warm
+              and sum(batches.values()) == launches["diag_chol_inv"],
+              f"fit programs [{name}]: K3 launches by batch {dict(batches)} / {dict(first_batches)}, expected "
+              f"{expect} / {expect_warm}")
+        check(n_built == len({K * k * pool for pool, _ in stages}), f"fit programs [{name}]: {n_built} graphs captured")
+        results["schedules"][name] = {"bit_equal": same, "k3_by_batch": dict(batches), "capture_s": capture_s,
+                                      "first_fit_s": t_first, "peak_bytes": peak_bytes,
+                                      "reserved_bytes": reserved_bytes}
+        del program, eager
+
+    # The default schedule timed in turns (its programs built once more, before the turns).
+    gp_fit.clear_fit_programs()
+    fit(spec, False)
+    turns = [wall_seconds(lambda: fit(spec, e)) for e in (True, False, False, True)]
+    eager_s, program_s = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    busy = {}
+    for how, e in (("eager", True), ("program", False)):
+        rows = profiled_device_rows(lambda: fit(spec, e))
+        busy[how] = sum(us for us, _, _ in rows) / 1e6
+    wall = {"eager": eager_s, "program": program_s}
+    print("fit programs, fit_gps in turns (eager, program, program, eager) s: " + " / ".join(f"{t:.4f}" for t in turns)
+          + f"; eager {eager_s:.4f} s, program {program_s:.4f} s ({eager_s / program_s:.2f}x); device busy per fit "
+          "(profiler): " + ", ".join(f"{h} {b:.4f} s = {b / wall[h]:.1%} of its wall time" for h, b in busy.items())
+          + f"; card: {smi}", flush=True)
+    results["fit_s"] = {"turns": turns, "eager": eager_s, "program": program_s, "device_busy_s": busy}
+
+    # Each stage's iteration alone: n iterations less 0 iterations (the seed
+    # evaluation and the loads), eager and replayed, under the profiler.
+    D2 = pairwise_sqdiff(X)
+    obj = gp_fit._Objective(spec.cfg, spec.alpha_jitter, D2, lo, hi)
+    steps = torch.ones(1, dtype=dt, device=device)
+    results["iteration"] = {}
+    for pool in (R, 3):
+        B = k * pool
+        u0 = gp_fit._to_u(lo, hi, torch.cat([lo + (hi - lo) * 0.5 + torch.zeros((k, 1, P), dtype=dt, device=device),
+                                             rand_logs], dim=1)[:, :pool]).reshape(B, P)
+        Yw = Y.T.repeat_interleave(pool, 0)
+        program = gp_fit.fit_program(spec.cfg, spec.alpha_jitter, spec.trial_steps, B, N, d, P, dt, device)
+        runs = {"eager": lambda n: gp_fit._optimize(u0, Yw, obj, steps, n),
+                "program": lambda n: program.run(u0, Yw, D2, lo, hi, n)}
+        check(all(torch.equal(a, b) for a, b in zip(runs["eager"](FIT_PROFILED_ITERS),
+                                                    runs["program"](FIT_PROFILED_ITERS))),
+              f"fit programs: {FIT_PROFILED_ITERS} iterations at batch {B} differ from the eager loop")
+        for how, run in runs.items():
+            rows0 = profiled_device_rows(lambda: run(0))
+            rows = profiled_device_rows(lambda: run(FIT_PROFILED_ITERS))
+            wall_ms = 1e3 * (wall_seconds(lambda: run(FIT_PROFILED_ITERS)) - wall_seconds(lambda: run(0)))
+            n = FIT_PROFILED_ITERS
+            busy_ms = (sum(us for us, _, _ in rows) - sum(us for us, _, _ in rows0)) / 1e3 / n
+            n_kernels = (sum(c for _, c, _ in rows) - sum(c for _, c, _ in rows0)) / n
+            k3 = [(us, c) for us, c, key in rows if "diag_chol_inv" in key]
+            k3_us = sum(us for us, _ in k3) / max(1, sum(c for _, c in k3))
+            top = ", ".join(f"{key[:48]} {us / 1e3 / (n + 1):.4f} ({c / (n + 1):.1f})" for us, c, key in rows[:8])
+            print(f"fit programs, one iteration at batch {B} ({how}): wall {wall_ms / n:.4f} ms, device busy "
+                  f"{busy_ms:.4f} ms = {busy_ms / (wall_ms / n):.1%}, {n_kernels:.1f} kernels and copies per "
+                  f"iteration, K3 {k3_us:.2f} us per launch; device time by kernel over 1 + {n} evaluations, "
+                  f"ms/evaluation (launches/evaluation): {top}", flush=True)
+            results["iteration"][f"B={B} {how}"] = {"wall_ms": wall_ms / n, "device_busy_ms": busy_ms,
+                                                   "kernels": n_kernels, "k3_us_per_launch": k3_us}
+        del program
+
+    # One group's 5-fold CV: eager, through the programs (two graphs for the
+    # five folds, all of one shape), and again with the programs cached.
+    group = groups[FIT_CV_GROUP]
+    run_cv = functools.partial(cv.cross_validate_group, group, k=STEER_CV_K, seed=0, n_opt_iters=N_OPT_ITERS,
+                               device=device, observables=observables)
+    gp_fit.clear_fit_programs()
+    built = gp_fit.fit_program_stats()["built"]
+    arts, cv_s = {}, {}
+    inner = gp_fit.fit_gps
+    for how in ("eager", "program, graphs built", "program", "eager again"):
+        gp_fit.fit_gps = functools.partial(inner, eager=True) if how.startswith("eager") else inner
+        try:
+            cv_s[how] = wall_seconds(lambda: arts.__setitem__(how, run_cv()))
+        finally:
+            gp_fit.fit_gps = inner
+    n_graphs = gp_fit.fit_program_stats()["built"] - built
+    keys = ("predictions", "predictive_std", "normalized_residuals", "lml_per_fold")
+    same = {key: all(np.array_equal(arts[how][key], arts["eager"][key]) for how in arts) for key in keys}
+    print(f"fit programs, {STEER_CV_K}-fold CV of {FIT_CV_GROUP} ({group.n_pc} PCs, {N - N // STEER_CV_K} training "
+          f"points per fold): " + ", ".join(f"{how} {t:.3f} s" for how, t in cv_s.items())
+          + f"; fold results bit-equal: {same}; {n_graphs} graphs captured for the {STEER_CV_K} folds; card: {smi}",
+          flush=True)
+    check(all(same.values()), f"fit programs: CV through the programs differs from the eager CV: {same}")
+    check(all(np.isfinite(arts["program"][key]).all() for key in keys), "fit programs: non-finite CV artifact")
+    check(n_graphs == 2, f"fit programs: {n_graphs} graphs captured for one CV group, expected 2")
+    results["cv_s"] = cv_s
+    gp_fit.clear_fit_programs()
+    return results
+
+
 def flops_text(step_flops: float, steps_per_s: float, device) -> str:
     """A sampler step's analytic FLOPs (utils/flops.py) and, at
     ``steps_per_s``, the rate reached and its share of the card's FP32 peak."""
@@ -950,6 +1166,7 @@ def phase_slice(device, kernels, data: dict, n_opt_iters: int = N_OPT_ITERS, n_c
     from bayesian_inference_tpu_torch.io import observables as obs_io
     from bayesian_inference_tpu_torch.mcmc.likelihood import build_likelihood
     from bayesian_inference_tpu_torch.mcmc.runner import run_mcmc
+    from bayesian_inference_tpu_torch.models import gp_fit
     from bayesian_inference_tpu_torch.models.emulator import fit_emulators, posterior_from_artifact
     from bayesian_inference_tpu_torch.models.gp import _LOG_2PI
     from bayesian_inference_tpu_torch.ops.fused_mvn import fused_block_mvn_buckets_plain
@@ -959,6 +1176,8 @@ def phase_slice(device, kernels, data: dict, n_opt_iters: int = N_OPT_ITERS, n_c
     observables, emu, mcmc = data["observables"], data["emu"], data["mcmc"]
     n_restarts, n_walkers, n_burn, n_steps = N_RESTARTS, N_WALKERS, N_BURN, N_STEPS
 
+    gp_fit.clear_fit_programs()  # the fit builds its two programs: their warm-up iterations are counted below
+    k3_expected = k3_fit_launches_with_warmup()
     reset(kernels)
     with count_evaluations() as evals, count_k3_batches() as k3_batches:
         t = time.perf_counter()
@@ -982,9 +1201,10 @@ def phase_slice(device, kernels, data: dict, n_opt_iters: int = N_OPT_ITERS, n_c
           f"log-probs finite: {bool(np.isfinite(logp).all())}, "
           f"shape {logp.shape}; mean acceptance {af:.4f} (must lie in {ACCEPTANCE_RANGE})", flush=True)
     print(f"slice K3 launches by batch size: {dict(sorted(k3_batches.items(), reverse=True))} "
-          f"(expected {K3_FIT_LAUNCHES})", flush=True)
-    check(dict(k3_batches) == K3_FIT_LAUNCHES and sum(k3_batches.values()) == launches["diag_chol_inv"],
-          f"slice: K3 launches by batch size {dict(k3_batches)}, expected {K3_FIT_LAUNCHES}")
+          f"(expected {k3_expected}: {K3_FIT_LAUNCHES} of the fit and the warm-up iterations of its two programs, "
+          f"counted through the replays)", flush=True)
+    check(dict(k3_batches) == k3_expected and sum(k3_batches.values()) == launches["diag_chol_inv"],
+          f"slice: K3 launches by batch size {dict(k3_batches)}, expected {k3_expected}")
     check(n_pc == sum(a["n_pc"] for a in artifacts.values()), "slice: fitted PC count")
     check(launches["diag_chol_inv"] > 0 and launches["fused_block_mvn"] > 0,
           f"slice: a kernel of the path never launched: {launches}")
@@ -1438,6 +1658,7 @@ def main() -> int:
     k4_dense = phase_k4_wide(device)
     data = production_data()
     program_rates = phase_programs(device, kernels, data)
+    fit_rates = phase_fit_programs(device, kernels, data)
     path_launches = []
     launches, reuse = phase_slice(device, kernels, data)
     path_launches.append(launches)
@@ -1453,6 +1674,7 @@ def main() -> int:
     print("dense routes and predict (no kernel; dense as in JAX): "
           + json.dumps({"k1_nb56": k1_dense, "k4_k72": k4_dense, "predict": predict_times}), flush=True)
     print("sampler programs beside the eager loop: " + json.dumps(program_rates), flush=True)
+    print("fit programs beside the eager loop: " + json.dumps(fit_rates), flush=True)
 
     record = {"kernels": [
         {"name": "diag_chol_inv", "route": "cuda",

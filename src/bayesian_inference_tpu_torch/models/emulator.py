@@ -130,6 +130,9 @@ def _specs_compatible(a: gp_fit.GPFitSpec, b: gp_fit.GPFitSpec) -> bool:
         and a.n_restarts == b.n_restarts
         and a.n_iters == b.n_iters
         and a.alpha_jitter == b.alpha_jitter
+        and (a.halving_iters, a.halving_keep) == (b.halving_iters, b.halving_keep)
+        and tuple(map(tuple, a.halving_schedule)) == tuple(map(tuple, b.halving_schedule))
+        and tuple(a.trial_steps) == tuple(b.trial_steps)
         and np.array_equal(a.theta0, b.theta0)
         and np.array_equal(a.log_lo, b.log_lo)
         and np.array_equal(a.log_hi, b.log_hi)

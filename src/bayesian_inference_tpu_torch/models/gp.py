@@ -55,20 +55,55 @@ def _trace(M: torch.Tensor) -> torch.Tensor:
     return torch.diagonal(M, dim1=-2, dim2=-1).sum(-1)
 
 
+def lml_forward(cfg: KernelConfig, params: KernelParams, D2: torch.Tensor, y: torch.Tensor, alpha_jitter: float):
+    """(LML, alpha = K^-1 y, invL = L^-1) of a stack of GPs through the blocked
+    factorisation; the last two are what ``lml_param_grads`` needs."""
+    K = train_gram_from_sqdiff(cfg, params, D2, alpha_jitter)
+    invL, half_logdet = chol_inv_batched(K)
+    alpha = (invL.mT @ (invL @ y[..., None]))[..., 0]
+    n = y.shape[-1]
+    lml = -0.5 * (y * alpha).sum(-1) - half_logdet - 0.5 * n * _LOG_2PI
+    return lml, alpha, invL
+
+
+def lml_param_grads(
+    cfg: KernelConfig, params: KernelParams, D2: torch.Tensor, alpha: torch.Tensor, invL: torch.Tensor
+) -> KernelParams:
+    """dLML/d(log hyperparameters) in closed form: dLML/dK = (alpha alpha^T -
+    K^{-1}) / 2, chained through the analytic dK/dtheta. Inactive fields get
+    zeros."""
+    Kinv = invL.mT @ invL
+    G = 0.5 * (alpha[..., :, None] * alpha[..., None, :] - Kinv)
+    w = torch.exp(-2.0 * params.log_length_scale)  # (..., d) = 1/ls^2
+    sq = torch.einsum("ijk,...k->...ij", D2, w)
+    H = G * _dK_dsq(cfg, sq)
+    d_log_ls = (-2.0) * w * torch.einsum("...ij,ijk->...k", H, D2)
+    zero = torch.zeros_like(params.log_noise)
+    d_log_noise = torch.exp(params.log_noise) * _trace(G) if cfg.with_noise else zero
+    d_log_constant = torch.exp(params.log_constant) * G.sum((-2, -1)) if cfg.with_constant else zero
+    return KernelParams(d_log_ls, d_log_noise, d_log_constant)
+
+
+def lml_value_and_grad(
+    cfg: KernelConfig, params: KernelParams, D2: torch.Tensor, y: torch.Tensor, alpha_jitter: float
+) -> tuple[torch.Tensor, KernelParams]:
+    """(LML, dLML/d log theta) of a stack of GPs without autograd: the same
+    two functions ``log_marginal_likelihood_matmul`` differentiates through,
+    called one after the other on one thread and one stream (the GP fit's
+    objective, which a stream capture can record)."""
+    with torch.no_grad():
+        lml, alpha, invL = lml_forward(cfg, params, D2, y, alpha_jitter)
+        return lml, lml_param_grads(cfg, params, D2, alpha, invL)
+
+
 class _LMLMatmul(torch.autograd.Function):
-    """LML with the blocked factorisation forward and the closed-form
-    gradient backward: dLML/dK = (alpha alpha^T - K^{-1}) / 2, chained through
-    the analytic dK/dtheta. No Cholesky backward, so the diagonal-block kernel
-    needs no backward kernel."""
+    """LML with the blocked factorisation forward (``lml_forward``) and the
+    closed-form gradient backward (``lml_param_grads``). No Cholesky backward,
+    so the diagonal-block kernel needs no backward kernel."""
 
     @staticmethod
     def forward(ctx, log_ls, log_noise, log_constant, D2, y, alpha_jitter, cfg):
-        params = KernelParams(log_ls, log_noise, log_constant)
-        K = train_gram_from_sqdiff(cfg, params, D2, alpha_jitter)
-        invL, half_logdet = chol_inv_batched(K)
-        alpha = (invL.mT @ (invL @ y[..., None]))[..., 0]
-        n = y.shape[-1]
-        lml = -0.5 * (y * alpha).sum(-1) - half_logdet - 0.5 * n * _LOG_2PI
+        lml, alpha, invL = lml_forward(cfg, KernelParams(log_ls, log_noise, log_constant), D2, y, alpha_jitter)
         ctx.cfg = cfg
         ctx.save_for_backward(log_ls, log_noise, log_constant, D2, alpha, invL)
         return lml
@@ -82,18 +117,9 @@ class _LMLMatmul(torch.autograd.Function):
             # device's primary context to this thread first.
             torch.cuda.current_stream(g.device).query()
         log_ls, log_noise, log_constant, D2, alpha, invL = ctx.saved_tensors
-        cfg = ctx.cfg
-        Kinv = invL.mT @ invL
-        G = 0.5 * (alpha[..., :, None] * alpha[..., None, :] - Kinv)
-        w = torch.exp(-2.0 * log_ls)  # (..., d) = 1/ls^2
-        sq = torch.einsum("ijk,...k->...ij", D2, w)
-        H = G * _dK_dsq(cfg, sq)
-        d_log_ls = g[..., None] * (-2.0) * w * torch.einsum("...ij,ijk->...k", H, D2)
-        zero = torch.zeros_like(log_noise)
-        d_log_noise = g * torch.exp(log_noise) * _trace(G) if cfg.with_noise else zero
-        d_log_constant = g * torch.exp(log_constant) * G.sum((-2, -1)) if cfg.with_constant else zero
+        d = lml_param_grads(ctx.cfg, KernelParams(log_ls, log_noise, log_constant), D2, alpha, invL)
         d_y = -g[..., None] * alpha if ctx.needs_input_grad[4] else None
-        return d_log_ls, d_log_noise, d_log_constant, None, d_y, None, None
+        return g[..., None] * d.log_length_scale, g * d.log_noise, g * d.log_constant, None, d_y, None, None
 
 
 def log_marginal_likelihood_matmul(

@@ -12,17 +12,22 @@ Every C entry launches on the stream it is given and returns
 counts the launches, so a run can show that its main path went through the
 kernel.
 
+A wrapper may name the batch size of a launch; the kernel then also counts its
+launches by batch (``launches_by_batch``), so a run can show which stage of
+a path launched it.
+
 A CUDA graph replays its captured launches without passing through ``launch``.
-``captured_launches`` records what a capture recorded per kernel (and takes
-those recordings back out of the counts: a capture launches nothing);
-``count_replays`` adds them for every replay, so the counts stay the number
-of times each kernel ran on the card.
+``captured_launches`` records what a capture recorded per kernel, in all and
+by batch (and takes those recordings back out of the counts: a capture
+launches nothing); ``count_replays`` adds them for every replay, so the
+counts stay the number of times each kernel ran on the card.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+from collections import Counter
 import hashlib
 import os
 import subprocess
@@ -54,6 +59,7 @@ class NativeKernel:
         self.source = CSRC_DIR / source
         self.entries = entries
         self.launches = 0
+        self.launches_by_batch: Counter = Counter()
         self.build_log = ""
         self.build_seconds = 0.0
         self._lib: ctypes.CDLL | None = None
@@ -97,12 +103,23 @@ class NativeKernel:
         self._lib = lib
         return lib
 
-    def launch(self, entry: str, *args) -> None:
+    def launch(self, entry: str, *args, batch: int | None = None) -> None:
         lib = self.build()
         rc = getattr(lib, entry)(*args)
         if rc != 0:
             raise RuntimeError(f"{entry} failed: {lib.error_string(rc).decode()} (cudaError {rc})")
         self.launches += 1
+        if batch is not None:
+            self.launches_by_batch[batch] += 1
+
+
+class LaunchRecord(dict):
+    """What one capture recorded: kernel -> launches, and in ``by_batch``
+    (kernel, batch) -> launches for the launches that named their batch."""
+
+    def __init__(self):
+        super().__init__()
+        self.by_batch: dict[tuple[NativeKernel, int], int] = {}
 
 
 @contextlib.contextmanager
@@ -110,21 +127,26 @@ def captured_launches():
     """Around a stream capture: yields a dict that, when the block ends, maps
     each kernel to the launches the capture recorded. The counts themselves
     are put back to what they were, since a capture runs nothing."""
-    before = [(k, k.launches) for k in KERNELS]
-    record: dict[NativeKernel, int] = {}
+    before = [(k, k.launches, Counter(k.launches_by_batch)) for k in KERNELS]
+    record = LaunchRecord()
     try:
         yield record
     finally:
-        for k, n in before:
+        for k, n, by_batch in before:
             if k.launches != n:
                 record[k] = k.launches - n
                 k.launches = n
+            for batch, count in (k.launches_by_batch - by_batch).items():
+                record.by_batch[k, batch] = count
+            k.launches_by_batch = by_batch
 
 
 def count_replays(record: dict["NativeKernel", int], replays: int) -> None:
     """Count ``replays`` replays of a graph whose capture recorded ``record``."""
     for k, n in record.items():
         k.launches += n * replays
+    for (k, batch), n in getattr(record, "by_batch", {}).items():
+        k.launches_by_batch[batch] += n * replays
 
 
 def build_all(kernels) -> None:

@@ -91,10 +91,11 @@ def _add_diag(K: torch.Tensor, diag: torch.Tensor) -> torch.Tensor:
 
 
 def _white_diag(cfg: KernelConfig, params: KernelParams, alpha_jitter, like: torch.Tensor) -> torch.Tensor:
-    diag = torch.as_tensor(alpha_jitter, dtype=like.dtype, device=like.device)
+    """noise_level + alpha per GP. The jitter enters as a scalar operand, not
+    as a tensor made from a host value, so a stream capture can record it."""
     if cfg.with_noise:
-        diag = diag + torch.exp(params.log_noise)
-    return diag
+        return torch.exp(params.log_noise) + alpha_jitter
+    return torch.full((), alpha_jitter, dtype=like.dtype, device=like.device)
 
 
 def train_gram_from_sqdiff(

@@ -109,8 +109,8 @@ def fit_total_flops(
     R = n_restarts + 1 instances per PC run halving_iters (+1 seed
     evaluation) iterations, the top halving_keep continue for the remainder,
     then one posterior build (~3N^3) per PC. The defaults are the JAX
-    package's; the port's schedule is ``gp_fit.HALVING_ITERS`` and
-    ``gp_fit.HALVING_KEEP``."""
+    package's; the port's schedule is ``GPFitSpec.halving_iters`` and
+    ``GPFitSpec.halving_keep`` (15, 3)."""
     R = n_restarts + 1
     per_iter = fit_iteration_flops(N, d)
     halve = 0 < halving_keep < R and n_iters > halving_iters

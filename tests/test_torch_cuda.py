@@ -274,9 +274,11 @@ def test_woodbury_loglike_on_the_card_matches_float64(device, k):
 
 
 def test_lml_backward_on_the_card_raises_no_warning(device):
-    """The GP fit's closed-form backward runs on autograd's device thread; in
-    a fresh process with warnings as errors, a fit on the card must not hit
-    cuBLAS's "no current CUDA context" warning."""
+    """The LML's closed-form backward runs on autograd's device thread; in a
+    fresh process with warnings as errors, a backward through
+    ``log_marginal_likelihood`` and a fit on the card (which captures its
+    iteration programs) must not hit cuBLAS's "no current CUDA context"
+    warning, or any other."""
     import subprocess
     import sys
     from pathlib import Path
@@ -293,6 +295,13 @@ def test_lml_backward_on_the_card_raises_no_warning(device):
         "post = gp_fit.fit_gps(spec, X, Y, generator=torch.Generator(device='cuda').manual_seed(0))\n"
         "torch.cuda.synchronize()\n"
         "assert torch.isfinite(post.lml).all(), post.lml\n"
+        "from bayesian_inference_tpu_torch.models import gp\n"
+        "from bayesian_inference_tpu_torch.ops.gram import KernelParams\n"
+        "leaves = [torch.zeros(3, 3, device='cuda', requires_grad=True), torch.zeros(3, device='cuda', "
+        "requires_grad=True), torch.zeros(3, device='cuda')]\n"
+        "gp.log_marginal_likelihood(KernelConfig(nu=1.5), KernelParams(*leaves), X, Y.T, 1e-6).sum().backward()\n"
+        "torch.cuda.synchronize()\n"
+        "assert torch.isfinite(leaves[0].grad).all() and leaves[0].grad.any()\n"
     )
     src = Path(__file__).resolve().parents[1] / "src"
     proc = subprocess.run([sys.executable, "-W", "error", "-c", code], cwd=src, capture_output=True, text=True,
@@ -492,6 +501,63 @@ def test_sampler_program_equals_the_eager_loop_on_the_card(card_analysis, mode, 
     for a, b in zip((*state, *out), (*ref_state, *ref)):
         assert torch.equal(a, b)
     assert torch.isfinite(out[1]).any() and 0 < int(state.n_accepted.sum()) < n * W * (n_points or 1)
+
+
+def _fit_inputs(seed, N=70, d=3, k=4, n_restarts=5):
+    """A small fit on the card: design, targets, spec and restart points."""
+    from bayesian_inference_tpu_torch.models import gp_fit
+    from bayesian_inference_tpu_torch.ops.gram import KernelConfig
+
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(0.0, 1.0, (N, d))
+    Y = np.stack([np.sin((3 + i) * X[:, i % d]) + 0.1 * rng.normal(size=N) for i in range(k)], axis=1)
+    spec = gp_fit.spec_from_reference_config(KernelConfig(nu=1.5), np.zeros(d), np.ones(d), n_restarts=n_restarts,
+                                             n_iters=30, alpha_jitter=1e-6)
+    rand_logs = rng.uniform(spec.log_lo, spec.log_hi, (k, n_restarts, d + 1))
+    return spec, *(torch.tensor(a, dtype=torch.float32, device="cuda") for a in (X, Y, rand_logs))
+
+
+@pytest.mark.parametrize("fields", [{}, {"trial_steps": (1.0, 0.3)}, {"halving_schedule": ((4, 4), (12, 2))},
+                                    {"halving_keep": 0}], ids=["default", "two_trial_steps", "two_rungs", "no_halving"])
+def test_fit_programs_equal_the_eager_fit_on_the_card(device, fields):
+    """On the card ``fit_gps`` runs every stage as replays of one captured
+    graph per stage shape: hyperparameters, LML, alpha and K^-1 equal the
+    eager loop's bit for bit; a second fit of another dataset of the same
+    shape goes through the cached programs (none built) and equals its own
+    eager fit, so the static buffers are really reloaded; and K3's launches
+    by batch follow the replays."""
+    import dataclasses
+
+    from bayesian_inference_tpu_torch.models import gp_fit
+
+    def same(a, b):
+        return (torch.equal(a.params.log_length_scale, b.params.log_length_scale)
+                and torch.equal(a.params.log_noise, b.params.log_noise) and torch.equal(a.lml, b.lml)
+                and torch.equal(a.alpha, b.alpha) and torch.equal(a.Kinv, b.Kinv))
+
+    gp_fit.clear_fit_programs()
+    built = gp_fit.fit_program_stats()["built"]
+    first, launched = None, []
+    for seed in (0, 1):
+        spec, X, Y, rand_logs = _fit_inputs(seed)
+        spec = dataclasses.replace(spec, **fields)
+        before, by_batch = bc.KERNEL.launches, dict(bc.KERNEL.launches_by_batch)
+        post = gp_fit.fit_gps(spec, X, Y, rand_logs=rand_logs)
+        torch.cuda.synchronize()
+        launched.append(bc.KERNEL.launches - before)
+        assert launched[-1] == sum(bc.KERNEL.launches_by_batch.values()) - sum(by_batch.values())
+        eager = gp_fit.fit_gps(spec, X, Y, rand_logs=rand_logs, eager=True)
+        assert same(post, eager) and bool(torch.isfinite(post.lml).all())
+        if first is None:
+            first, n_programs = post, gp_fit.fit_program_stats()["built"] - built
+            assert n_programs == len(gp_fit.halving_rungs(spec)) + 1
+            assert all(p.captured for p in gp_fit._PROGRAMS.values())
+            warm = 2 * gp_fit.WARMUP_ITERATIONS * n_programs  # N = 70 pads to two diagonal blocks
+        else:
+            assert gp_fit.fit_program_stats()["built"] == built + n_programs
+            assert not torch.equal(post.lml, first.lml)
+            assert launched[1] == launched[0] - warm
+    gp_fit.clear_fit_programs()
 
 
 def test_cross_validation_on_the_card_launches_k3(card_analysis):
