@@ -35,6 +35,22 @@ launch counts set to 0 just before it and read just after:
   fitted emulators;
 - the closure-test batch: ``run_closure_batch`` over the 30 validation
   points, in lowrank and in block mode;
+- the stretch move's options through the sampler programs (``thin``, ``a``,
+  ``randomize_split``, ``store_chain``): program against eager loop bit for
+  bit, block and lowrank, one analysis and the 30-point batch; thinned
+  against unthinned ms per step in turns; peak bytes with and without the
+  chain stored;
+- the memory-bounded closure batch: production in four ``dispatch_chunk``
+  slabs against one chunk under the same injected draws (final state bit for
+  bit, the device statistics over the list of slabs, peak bytes of both);
+- the device mesh (``parallel/mesh.py``) on the one card: ``get_mesh()``
+  against ``mesh=None`` bit for bit, then a mesh naming the card four times
+  (the sharded log-posterior, ``run_mcmc``, the closure batch padded from 30
+  to 32 points, ``fit_gps(mesh=)``); a run over several cards is not
+  measured;
+- the main path at its full length, once: ``fit_emulators`` -> ``run_mcmc``
+  with 100 walkers and 1,000 + 50,000 steps, with seconds per phase, steps
+  per second and peak bytes;
 - the steer entry point, ``SteerAnalysis(config=..., write=False)``: table
   ingest -> preprocessing -> fit -> 5-fold CV of every group -> MCMC
   checkpointed every 500 steps -> closure batch; then an MCMC run and a
@@ -112,6 +128,20 @@ FIT_TRIAL_STEPS = (1.0, 0.3)
 FIT_TWO_RUNGS = ((5, 8), (10, 3))
 FIT_PROFILED_ITERS = 20
 FIT_CV_GROUP = "substructure_Dz_group"
+# The options phase: the thinned case held against the eager loop, and the
+# steps of the batch's timed turns (the analysis' turns run PROGRAM_TIMED_STEPS).
+OPTION_THINNED = {"thin": 4, "a": 1.5, "randomize_split": False}
+OPTION_BATCH_TIMED_STEPS = 1000
+# The memory-bounded closure batch: production steps and the chunks they run in.
+SLAB_STEPS, SLAB_CHUNKS = 1200, 4
+# The mesh phase: how often the mesh names the one card, and the closure steps.
+MESH_ENTRIES, MESH_CLOSURE_STEPS = 4, 300
+# The mesh fit is held to the unsharded fit's LMLs (LML_TOL_NAT) after this
+# many iterations of every restart; after the whole schedule to a looser bar,
+# see MESH_FIT_PATH_TOL_NAT.
+MESH_FIT_SHORT_ITERS = 3
+# The main path at its full length (bench.py's north-star workload).
+FULL_BURN, FULL_STEPS = 1000, 50_000
 # Production with and without chunking is timed in turns: the steer's own
 # (chunked) run, then this many (one chunk, chunked) pairs, then one chunk.
 STEER_TIMING_PAIRS = 3
@@ -149,6 +179,15 @@ TAU_RTOL, RHAT_ATOL = 1e-2, 1e-4
 # - The f32 fit's LML at its optimum against a float64 recompute at the same
 #   hyperparameters: the repo's fit-parity bar (docs/fit_schedule_study.json).
 LML_TOL_NAT = 0.1
+# - The mesh fit against the unsharded fit after the whole schedule, both f32
+#   on the card: a share's batched GEMMs round differently from the whole
+#   batch's, 60 L-BFGS iterations amplify that, and near ties in a rung's
+#   ranking pick other survivors, so a PC can end in another optimum.
+#   Measured on an H100: median |delta| 6e-5 nat, one of 41 PCs off by 1.37
+#   nat on LMLs of ~256. Held: the median within LML_TOL_NAT, at most a tenth
+#   of the PCs beyond it, and none beyond this bar. A share fed another PC's
+#   targets would be off by tens of nats.
+MESH_FIT_PATH_TOL_NAT = 5.0
 ACCEPTANCE_RANGE = (0.05, 0.9)
 # - ``predict`` on the card (f32 GP predict and covariance) against the same
 #   call on the CPU in float64, from the same artifacts: central values as
@@ -238,7 +277,7 @@ def count_evaluations():
         return inner(self, theta)
 
     def counted_chunk(self, state, like, n_steps, *args, **kwargs):
-        if self.captured:
+        if self.captured and not self._parts:  # a point-sharded program's shares count themselves
             calls[self.mode] += 2 * n_steps
         return inner_chunk(self, state, like, n_steps, *args, **kwargs)
 
@@ -1159,6 +1198,20 @@ def flops_text(step_flops: float, steps_per_s: float, device) -> str:
             f"{tflops / peak:.2%} of the FP32 peak {peak:.0f} TFLOP/s")
 
 
+def lml_float64(cfg, params, X, Y, alpha_jitter) -> torch.Tensor:
+    """The LML of each GP (targets ``Y`` (k, N)) at ``params``, recomputed in
+    float64 with the library Cholesky: (k,)."""
+    from bayesian_inference_tpu_torch.models.gp import _LOG_2PI
+    from bayesian_inference_tpu_torch.ops.gram import KernelParams, train_gram
+
+    params = KernelParams(*(getattr(params, f).double() for f in ("log_length_scale", "log_noise", "log_constant")))
+    Y = Y.double()
+    Lc = torch.linalg.cholesky(train_gram(cfg, params, X.double(), alpha_jitter))
+    a = torch.cholesky_solve(Y[..., None], Lc)[..., 0]
+    return (-0.5 * (Y * a).sum(-1) - torch.log(torch.diagonal(Lc, dim1=-2, dim2=-1)).sum(-1)
+            - 0.5 * Y.shape[-1] * _LOG_2PI)
+
+
 def phase_slice(device, kernels, data: dict, n_opt_iters: int = N_OPT_ITERS, n_check: int = 64) -> tuple[dict, dict]:
     """The main path at production width: fit -> likelihood -> sampler.
     Returns (kernel launches, what later phases reuse: emulators, observables,
@@ -1168,9 +1221,7 @@ def phase_slice(device, kernels, data: dict, n_opt_iters: int = N_OPT_ITERS, n_c
     from bayesian_inference_tpu_torch.mcmc.runner import run_mcmc
     from bayesian_inference_tpu_torch.models import gp_fit
     from bayesian_inference_tpu_torch.models.emulator import fit_emulators, posterior_from_artifact
-    from bayesian_inference_tpu_torch.models.gp import _LOG_2PI
     from bayesian_inference_tpu_torch.ops.fused_mvn import fused_block_mvn_buckets_plain
-    from bayesian_inference_tpu_torch.ops.gram import train_gram
     from bayesian_inference_tpu_torch.utils import flops
 
     observables, emu, mcmc = data["observables"], data["emu"], data["mcmc"]
@@ -1216,12 +1267,8 @@ def phase_slice(device, kernels, data: dict, n_opt_iters: int = N_OPT_ITERS, n_c
     lml_delta = 0.0
     for art in artifacts.values():
         cfg, post = posterior_from_artifact(art, device=device, dtype=torch.float64)
-        K = train_gram(cfg, post.params, post.X, art["emulators"]["alpha_jitter"])
         Y = torch.tensor(art["PCA"]["Y_pca_truncated"].T, dtype=torch.float64, device=device)
-        Lc = torch.linalg.cholesky(K)
-        a = torch.cholesky_solve(Y[..., None], Lc)[..., 0]
-        lml64 = (-0.5 * (Y * a).sum(-1) - torch.log(torch.diagonal(Lc, dim1=-2, dim2=-1)).sum(-1)
-                 - 0.5 * Y.shape[-1] * _LOG_2PI)
+        lml64 = lml_float64(cfg, post.params, post.X, Y, art["emulators"]["alpha_jitter"])
         lml_delta = max(lml_delta, float((post.lml - lml64).abs().max()))
     check(lml_delta <= LML_TOL_NAT, f"slice: fitted LML off its float64 recompute by {lml_delta:.4g} nat")
 
@@ -1374,6 +1421,415 @@ def phase_closure(device, kernels, s: dict, mode: str, n_check: int = 100) -> di
     check(tau_err <= TAU_RTOL, f"closure {mode}: device tau off the host estimate by {tau_err:.3g}")
     check(rhat_err <= RHAT_ATOL, f"closure {mode}: device split-R-hat off the host one by {rhat_err:.3g}")
     check(lp_err <= CLOSURE_LOGP_TOL, f"closure {mode}: batched log-posterior off the per-point one by {lp_err:.3g}")
+    return launches
+
+
+def peak_bytes_of(fn) -> tuple[int, object]:
+    """(peak allocated bytes above what was held before, result) of ``fn()``."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    result = fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base, result
+
+
+def validation_offsets(s: dict, like, mode: str, device, pseudodata=None):
+    """``like`` with one residual offset per validation point (30), from
+    ``pseudodata`` (per-point dicts, as a closure batch returns them) or from
+    pseudodata drawn here."""
+    from bayesian_inference_tpu_torch.io import observables as obs_io
+    from bayesian_inference_tpu_torch.mcmc import likelihood as lik
+
+    emu, artifacts, observables = s["emu"], s["artifacts"], s["observables"]
+    P = observables["Design_validation"].shape[0]
+    if pseudodata is None:
+        pseudodata = [obs_io.data_array_from_h5("", "", pseudodata_index=i, rng=np.random.default_rng(i),
+                                                observable_filter=emu.observable_filter, observables=observables)
+                      for i in range(P)]
+    y_batch = np.stack([p["y"] for p in pseudodata])
+    dt = like.theta_min.dtype
+    if mode == "block":
+        d0 = tuple(torch.tensor(d, dtype=dt, device=device)
+                   for d in lik.pad_residual_offsets(emu, artifacts, y_batch, observables))
+    else:
+        d0 = torch.tensor(lik.residual_offsets_flat(emu, artifacts, y_batch, observables), dtype=dt, device=device)
+    return like.with_d0(d0)
+
+
+def phase_sampler_options(device, kernels, s: dict) -> dict:
+    """The stretch move's options through the sampler programs at production
+    width, on the slice's fitted emulators: for block and lowrank mode, one
+    analysis and the 30-point batch, program against eager loop over 200
+    steps with ``thin=4, a=1.5, randomize_split=False`` and with
+    ``store_chain=False``, bit for bit; the kernel's launches through the
+    replays (two evaluations per sub-step); ms per step thinned and
+    unthinned in turns; peak bytes with and without the chain stored."""
+    from bayesian_inference_tpu_torch.mcmc import stretch
+    from bayesian_inference_tpu_torch.mcmc.likelihood import build_likelihood
+    from bayesian_inference_tpu_torch.mcmc.programs import SamplerPrograms
+
+    box = s["box"]
+    ndim, W = len(box["min"]), N_WALKERS
+    kernel_of = {"block": "fused_block_mvn", "lowrank": "block_mvn"}
+    cases = {"thinned": OPTION_THINNED, "no chain": {"store_chain": False}}
+    smi = nvidia_smi_line()
+    results, total = {}, {name: 0 for name in kernels}
+    for mode in ("block", "lowrank"):
+        like1 = build_likelihood(s["emu"], s["artifacts"], s["experimental"], box["min"], box["max"], mode=mode,
+                                 device=device, observables=s["observables"])
+        dt = like1.theta_min.dtype
+        like_p = validation_offsets(s, like1, mode, device)
+        P = s["observables"]["Design_validation"].shape[0]
+        for n_points, like, timed_steps in ((None, like1, PROGRAM_TIMED_STEPS), (P, like_p, OPTION_BATCH_TIMED_STEPS)):
+            name = f"{mode}" + (f" batch P={P}" if n_points else "")
+            lead = (n_points,) if n_points else ()
+            gens = [torch.Generator(device=device).manual_seed(300 + i) for i in range(n_points or 1)]
+            draw_from = gens if n_points else gens[0]
+            x0 = like.theta_min + (like.theta_max - like.theta_min) * torch.rand(
+                (*lead, W, ndim), generator=gens[0], dtype=dt, device=device)
+            fn = like.log_posterior
+            eager_chunk = stretch.run_chunk_batched if n_points else stretch.run_chunk
+            pregen = stretch.pregen_rands_batched if n_points else stretch.pregen_rands
+            state0 = stretch.init_state(fn, x0)
+            same, launched = {}, {}
+            for case, options in cases.items():
+                rands = pregen(PROGRAM_CHECK_STEPS, W, draw_from, dt, options.get("randomize_split", True))
+                eager = eager_chunk(state0, fn, PROGRAM_CHECK_STEPS, rands=rands, **options)
+                programs = SamplerPrograms(like, W, ndim, [PROGRAM_CHECK_STEPS], n_points=n_points, **options)
+                programs.compile()
+                check(programs.captured, f"options {name} ({case}): the program is not a captured graph")
+                reset(kernels)
+                out = programs.chunk(programs.init(like, x0), like, PROGRAM_CHECK_STEPS, rands=rands)
+                torch.cuda.synchronize()
+                launches = counts(kernels)
+                for k, v in launches.items():
+                    total[k] += v
+                if options.get("store_chain", True):
+                    same[case] = same_chunk(out, eager)
+                else:
+                    same[case] = same_chunk((out[0], (out[1],)), (eager[0], (eager[1],)))
+                    same[case]["acceptance"] = same[case].pop("chain")  # the one output is the acceptance trace
+                    check(isinstance(out[1], torch.Tensor) and len(programs._outputs) == 1,
+                          f"options {name} ({case}): a chain buffer exists")
+                rows = PROGRAM_CHECK_STEPS // options.get("thin", 1)
+                check(out[1][-1].shape[0] == rows if options.get("store_chain", True) else out[1].shape[0] == rows,
+                      f"options {name} ({case}): output rows")
+                # init is one eager evaluation; every sub-step two through the replays
+                expect = 1 + 2 * PROGRAM_CHECK_STEPS
+                check(launches[kernel_of[mode]] == expect and sum(launches.values()) == expect,
+                      f"options {name} ({case}): {launches} launches, expected {expect} of {kernel_of[mode]}")
+                check(all(same[case].values()), f"options {name} ({case}): not bit-equal to the eager loop: {same[case]}")
+                launched[case] = launches[kernel_of[mode]]
+                del programs, out, eager, rands
+
+            # ms per step, thinned and unthinned programs in turns, and the
+            # peak bytes of a chunk with and without the chain stored.
+            built = {}
+            for label, options in (("unthinned", {}), ("thinned", {"thin": OPTION_THINNED["thin"]}),
+                                   ("no chain", {"store_chain": False})):
+                def build(options=options):
+                    programs = SamplerPrograms(like, W, ndim, [timed_steps], n_points=n_points, **options)
+                    programs.compile()
+                    programs.chunk(state0, like, timed_steps, generator=draw_from)
+                    return programs
+
+                built[label] = peak_bytes_of(build)
+
+            def run(label):
+                return wall_ms_per_step(lambda: built[label][1].chunk(state0, like, timed_steps, generator=draw_from),
+                                        timed_steps)
+
+            turns = [run("unthinned"), run("thinned"), run("thinned"), run("unthinned")]
+            plain_ms, thin_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            peaks = {label: b[0] for label, b in built.items()}
+            print(f"options {name}: {PROGRAM_CHECK_STEPS} steps program vs eager bit-equal: {OPTION_THINNED} {same['thinned']}; "
+                  f"store_chain=False {same['no chain']}; {kernel_of[mode]} launches through the replays {launched} "
+                  f"(1 + 2 per sub-step); in turns (unthinned, thin {OPTION_THINNED['thin']}, thin, unthinned; "
+                  f"{timed_steps} steps each) ms/step " + " / ".join(f"{x:.4f}" for x in turns)
+                  + f": unthinned {plain_ms:.4f}, thinned {thin_ms:.4f} ({thin_ms / plain_ms:.3f}x); peak bytes of a "
+                  f"build and one {timed_steps}-step chunk: " + ", ".join(f"{k} {v / 1e6:.1f} MB" for k, v in peaks.items())
+                  + f"; card: {smi}", flush=True)
+            check(peaks["no chain"] < peaks["unthinned"], f"options {name}: store_chain=False did not lower the peak: {peaks}")
+            results[name] = {"unthinned_ms_per_step": plain_ms, "thinned_ms_per_step": thin_ms, "turns_ms": turns,
+                             "peak_bytes": peaks}
+            del built
+    check(total["fused_block_mvn"] > 0 and total["block_mvn"] > 0, f"options: a kernel never launched: {total}")
+    return total, results
+
+
+def phase_closure_slabs(device, kernels, s: dict) -> dict:
+    """The memory-bounded closure batch (block mode, 30 points): production
+    in chunks of ``dispatch_chunk`` (four chunks) against the one-chunk run
+    under the same injected draws, neither returning nor writing chains: the
+    final state bit for bit, tau and R-hat within the device-against-host
+    tolerances, and the peak allocated bytes of both, the slab run's lower."""
+    from bayesian_inference_tpu_torch.mcmc import stretch
+    from bayesian_inference_tpu_torch.mcmc.runner import run_closure_batch
+
+    config = mcmc_config(SLAB_STEPS)
+    indices = list(range(s["observables"]["Design_validation"].shape[0]))
+    P, W, box = len(indices), N_WALKERS, s["box"]
+    ndim = len(box["min"])
+    gens = [torch.Generator(device=device).manual_seed(500 + i) for i in indices]
+
+    def draws(n):
+        return {k: v.cpu().numpy() for k, v in stretch.pregen_rands_batched(n, W, gens, torch.float32).items()}
+
+    lo, hi = np.asarray(box["min"], np.float32), np.asarray(box["max"], np.float32)
+    x0 = lo + (hi - lo) * np.random.default_rng(5).uniform(0.05, 0.95, (P, W, ndim)).astype(np.float32)
+    injected = {"x0": x0, "burn": [draws(N_BURN // 2), draws(N_BURN - N_BURN // 2)], "production": draws(SLAB_STEPS)}
+    kw = dict(seed=0, device=device, mode="block", emulation_results=s["artifacts"], observables=s["observables"],
+              write=False, return_chains=False, draws=injected)
+    asked = []
+    from bayesian_inference_tpu_torch.mcmc.programs import SamplerPrograms
+
+    inner = SamplerPrograms.chunk
+
+    def recording(self, state, like, n_steps, *args, **kwargs):
+        asked.append(n_steps)
+        return inner(self, state, like, n_steps, *args, **kwargs)
+
+    runs, peaks, launches = {}, {}, {}
+    for label, chunk in (("one chunk", None), ("slabs", SLAB_STEPS // SLAB_CHUNKS)):
+        torch.cuda.empty_cache()
+        reset(kernels)
+        SamplerPrograms.chunk = recording
+        try:
+            with count_evaluations() as evals:
+                peaks[label], runs[label] = peak_bytes_of(lambda: run_closure_batch(config, indices, dispatch_chunk=chunk, **kw))
+        finally:
+            SamplerPrograms.chunk = inner
+        launches[label] = counts(kernels)
+        check_k1_per_evaluation(launches[label], evals, f"closure slabs ({label})")
+        check(launches[label]["fused_block_mvn"] > 0, f"closure slabs ({label}): K1 never launched")
+        production = asked[2:]
+        del asked[:]
+        check(production == ([SLAB_STEPS] if chunk is None else [chunk] * SLAB_CHUNKS),
+              f"closure slabs ({label}): production chunks {production}")
+    one, slabs = runs["one chunk"], runs["slabs"]
+    check(all("chain" not in slabs[i] and "log_prob" not in slabs[i] for i in indices),
+          "closure slabs: a chain was returned with return_chains=False")
+    same = {key: all(np.array_equal(slabs[i][key], one[i][key]) for i in indices)
+            for key in ("final_coords", "final_log_prob", "acceptance_fraction")}
+    rhat_err = max(float(np.max(np.abs(slabs[i]["split_rhat"] - one[i]["split_rhat"]))) for i in indices)
+    tau_err = 0.0
+    for i in indices:
+        a, b = slabs[i]["autocorrelation_time"], one[i]["autocorrelation_time"]
+        check((a is None) == (b is None), f"closure slabs: point {i}: one run has a tau estimate, the other none")
+        if a is not None:
+            tau_err = max(tau_err, float(np.max(np.abs(a - b) / b)))
+    af = np.array([float(np.mean(slabs[i]["acceptance_fraction"])) for i in indices])
+    t_one, t_slabs = one[indices[0]]["timings"], slabs[indices[0]]["timings"]
+    print(f"closure slabs (block, {P} points x {W} walkers x {SLAB_STEPS} steps, injected draws, return_chains=False, "
+          f"write=False): dispatch_chunk={SLAB_STEPS // SLAB_CHUNKS} ({SLAB_CHUNKS} chunks) against one chunk: bit-equal "
+          f"{same}; tau max rel diff {tau_err:.3g} (tol {TAU_RTOL}), split-R-hat max abs diff {rhat_err:.3g} (tol "
+          f"{RHAT_ATOL}); peak allocated bytes one chunk {peaks['one chunk'] / 1e6:.1f} MB, slabs "
+          f"{peaks['slabs'] / 1e6:.1f} MB; production s {t_one['production']:.3f} / {t_slabs['production']:.3f}, "
+          f"statistics s {t_one['autocorr']:.3f} / {t_slabs['autocorr']:.3f}; acceptance per point "
+          f"{af.min():.4f}..{af.max():.4f}; kernel launches {launches['slabs']}; card: {nvidia_smi_line()}", flush=True)
+    check(all(same.values()), f"closure slabs: the final state differs from the one-chunk run's: {same}")
+    check(tau_err <= TAU_RTOL and rhat_err <= RHAT_ATOL, f"closure slabs: statistics differ: tau {tau_err:.3g}, R-hat {rhat_err:.3g}")
+    check(peaks["slabs"] < peaks["one chunk"], f"closure slabs: the slab run's peak is not lower: {peaks}")
+    check(bool(((ACCEPTANCE_RANGE[0] < af) & (af < ACCEPTANCE_RANGE[1])).all()), "closure slabs: acceptance out of range")
+    return {name: launches["one chunk"][name] + launches["slabs"][name] for name in kernels}
+
+
+def phase_mesh(device, kernels, s: dict, data: dict) -> dict:
+    """The device mesh on the one card. ``get_mesh()`` (one device):
+    ``run_mcmc(mesh=...)`` through the captured graph, bit-equal to
+    ``mesh=None``. Then a mesh that names the card four times, which runs the
+    split, the replicas, the padding and the gather on the card: the sharded
+    log-posterior against the unsharded one, ``run_mcmc`` (four K1 launches
+    per evaluation, still one captured graph), the closure batch (30 points
+    padded to 32, four programs of 8 points), and ``fit_gps`` with the
+    instances split four ways. A run over several cards is not measured."""
+    from bayesian_inference_tpu_torch.mcmc.likelihood import build_likelihood
+    from bayesian_inference_tpu_torch.mcmc.runner import run_closure_batch, run_mcmc
+    from bayesian_inference_tpu_torch.models import gp_fit
+    from bayesian_inference_tpu_torch.models.emulator import _prepare_group
+    from bayesian_inference_tpu_torch.parallel.mesh import get_mesh, make_sharded_log_prob
+    import dataclasses
+
+    box = s["box"]
+    total = {name: 0 for name in kernels}
+
+    def counted(fn):
+        reset(kernels)
+        out = fn()
+        torch.cuda.synchronize()
+        launches = counts(kernels)
+        for k, v in launches.items():
+            total[k] += v
+        return out, launches
+
+    config = mcmc_config(N_STEPS)
+    kw = dict(seed=0, device=device, emulation_results=s["artifacts"], observables=s["observables"], write=False)
+    one_card = get_mesh()
+    check(one_card.size == torch.cuda.device_count() == 1, f"mesh: get_mesh() names {one_card.size} devices")
+    plain, launches_plain = counted(lambda: run_mcmc(config, **kw))
+    meshed, launches_one = counted(lambda: run_mcmc(config, mesh=one_card, **kw))
+    same = {key: bool(np.array_equal(meshed[key], plain[key])) for key in ("chain", "log_prob", "acceptance_fraction")}
+    check(meshed["programs_captured"] and all(same.values()) and launches_one == launches_plain,
+          f"mesh: the one-device mesh differs from mesh=None: {same}, captured {meshed['programs_captured']}, "
+          f"launches {launches_one} / {launches_plain}")
+
+    mesh4 = get_mesh(devices=[device] * MESH_ENTRIES)
+    like = build_likelihood(s["emu"], s["artifacts"], s["experimental"], box["min"], box["max"], device=device,
+                            observables=s["observables"])
+    theta = torch.tensor(plain["chain"][-1], device=device, dtype=like.theta_min.dtype)
+    ref = like.log_posterior(theta)
+    (sharded_lp, launches_lp) = counted(lambda: make_sharded_log_prob(like, mesh4)(theta))
+    lp_err = float((sharded_lp - ref).abs().max() / ref.abs().max())
+    check(launches_lp["fused_block_mvn"] == MESH_ENTRIES, f"mesh: {launches_lp} for one sharded evaluation")
+    t = time.perf_counter()
+    out4, launches4 = counted(lambda: run_mcmc(config, mesh=mesh4, **kw))
+    t_mesh = time.perf_counter() - t
+    af4 = float(np.mean(out4["acceptance_fraction"]))
+    check(out4["programs_captured"], "mesh: four entries of one card are not one captured graph")
+    check(launches4["fused_block_mvn"] == MESH_ENTRIES * launches_plain["fused_block_mvn"],
+          f"mesh: {launches4} launches against {launches_plain} unsharded, expected {MESH_ENTRIES} per evaluation")
+    check(bool(np.isfinite(out4["log_prob"]).all()) and ACCEPTANCE_RANGE[0] < af4 < ACCEPTANCE_RANGE[1],
+          f"mesh: the walker-sharded run: acceptance {af4:.4f}")
+    overhead = out4["timings"]["production"] / plain["timings"]["production"]
+    print(f"mesh: get_mesh() = {one_card.size} card: run_mcmc(mesh=) bit-equal to mesh=None {same}, captured graph "
+          f"{meshed['programs_captured']}, launches {launches_one}; mesh of {MESH_ENTRIES} x {device}: sharded "
+          f"log-posterior at {theta.shape[0]} positions max err / max|lp| {lp_err:.3g} (tol {CLOSURE_LOGP_TOL}); "
+          f"run_mcmc walker-sharded ({N_WALKERS // 2} per half-step in shards of 13/13/12/12), one captured graph "
+          f"{out4['programs_captured']}, launches {launches4}, production {out4['timings']['production']:.3f} s = "
+          f"{N_STEPS / out4['timings']['production']:.1f} steps/s against {plain['timings']['production']:.3f} s = "
+          f"{N_STEPS / plain['timings']['production']:.1f} unsharded ({overhead:.2f}x), whole call {t_mesh:.2f} s, "
+          f"acceptance {af4:.4f}; card: {nvidia_smi_line()}", flush=True)
+    check(lp_err <= CLOSURE_LOGP_TOL, f"mesh: sharded log-posterior off the unsharded one by {lp_err:.3g}")
+
+    # The closure batch: 30 points padded to 32, four programs of 8 points.
+    closure_config = mcmc_config(MESH_CLOSURE_STEPS)
+    indices = list(range(s["observables"]["Design_validation"].shape[0]))
+    batch_kw = dict(seed=0, device=device, mode="block", emulation_results=s["artifacts"],
+                    observables=s["observables"], write=False)
+    unsharded, launches_u = counted(lambda: run_closure_batch(closure_config, indices, **batch_kw))
+    sharded, launches_s = counted(lambda: run_closure_batch(closure_config, indices, mesh=mesh4, **batch_kw))
+    check(sorted(sharded) == indices, f"mesh closure: outputs for {sorted(sharded)}: the pad points' are not absent")
+    check(launches_s["fused_block_mvn"] == MESH_ENTRIES * launches_u["fused_block_mvn"],
+          f"mesh closure: {launches_s} launches against {launches_u} unsharded")
+    like_p = validation_offsets(s, like, "block", device, [sharded[i]["experimental_pseudodata"] for i in indices])
+    final = torch.tensor(np.stack([sharded[i]["final_coords"] for i in indices]), device=device, dtype=like.theta_min.dtype)
+    lp_ref = like_p.log_posterior(final).double().cpu().numpy()
+    lp_got = np.stack([sharded[i]["final_log_prob"] for i in indices]).astype(np.float64)
+    closure_err = float(np.max(np.abs(lp_got - lp_ref)) / np.max(np.abs(lp_ref)))
+    af_s = np.array([float(np.mean(sharded[i]["acceptance_fraction"])) for i in indices])
+    af_u = np.array([float(np.mean(unsharded[i]["acceptance_fraction"])) for i in indices])
+    rate_s = len(indices) * MESH_CLOSURE_STEPS / sharded[indices[0]]["timings"]["production"]
+    rate_u = len(indices) * MESH_CLOSURE_STEPS / unsharded[indices[0]]["timings"]["production"]
+    print(f"mesh closure (block, {len(indices)} points padded to {len(indices) + (-len(indices)) % MESH_ENTRIES}, "
+          f"{MESH_ENTRIES} programs of {(len(indices) + (-len(indices)) % MESH_ENTRIES) // MESH_ENTRIES} points, "
+          f"{MESH_CLOSURE_STEPS} steps): outputs for {len(sharded)} points; each share's log-posterior at its final "
+          f"positions against the unsharded batch likelihood: max err / max|lp| {closure_err:.3g} (tol "
+          f"{CLOSURE_LOGP_TOL}); {rate_s:.1f} point-steps/s against {rate_u:.1f} unsharded; acceptance per point "
+          f"{af_s.min():.4f}..{af_s.max():.4f} (unsharded {af_u.min():.4f}..{af_u.max():.4f}); launches {launches_s}",
+          flush=True)
+    check(closure_err <= CLOSURE_LOGP_TOL, f"mesh closure: log-posterior off the unsharded likelihood by {closure_err:.3g}")
+    check(bool(((ACCEPTANCE_RANGE[0] < af_s) & (af_s < ACCEPTANCE_RANGE[1])).all()), "mesh closure: acceptance out of range")
+
+    # The fit: the production fit's instances (41 PCs x 51 restarts) split four ways.
+    groups = data["emu"].emulation_groups_config
+    preps = {name: _prepare_group(g, N_OPT_ITERS, data["observables"]) for name, g in groups.items()}
+    first = next(iter(preps.values()))
+    spec, dt = first["spec"], torch.float32
+    X = torch.as_tensor(first["design"], dtype=dt, device=device)
+    Y = torch.as_tensor(np.concatenate([p["Y_pca_truncated"] for p in preps.values()], axis=1), dtype=dt, device=device)
+    lo, hi = (torch.as_tensor(a, dtype=dt, device=device) for a in (spec.log_lo, spec.log_hi))
+    rand_logs = lo + (hi - lo) * torch.rand((Y.shape[1], spec.n_restarts, spec.theta0.shape[0]), dtype=dt, device=device,
+                                            generator=torch.Generator(device=device).manual_seed(13))
+    def fits(fit_spec):
+        with count_k3_batches() as by_batch_u:
+            (unsharded, launched_u) = counted(lambda: gp_fit.fit_gps(fit_spec, X, Y, rand_logs=rand_logs))
+        with count_k3_batches() as by_batch_s:
+            (sharded, launched_s) = counted(lambda: gp_fit.fit_gps(fit_spec, X, Y, rand_logs=rand_logs, mesh=mesh4))
+        check(launched_s["diag_chol_inv"] > launched_u["diag_chol_inv"] > 0,
+              f"mesh fit: K3 launches {launched_s} / {launched_u}")
+        return unsharded, sharded, dict(sorted(by_batch_u.items(), reverse=True)), dict(sorted(by_batch_s.items(), reverse=True))
+
+    # A few iterations of the whole pool: the shares' arithmetic against the
+    # unsharded batch's, before the optimiser's paths can part.
+    short = dataclasses.replace(spec, n_iters=MESH_FIT_SHORT_ITERS, halving_keep=0)
+    short_u, short_s, _, _ = fits(short)
+    short_err = float((short_s.lml - short_u.lml).abs().max())
+    fit_u, fit_s, batches_u, batches_s = fits(spec)
+    # Each timed with its programs cached: the sharded fit's four are, from
+    # the fit just made; they pushed the unsharded fit's two out of the cache
+    # (MAX_FIT_PROGRAMS), so that fit runs once untimed first.
+    t_s = wall_seconds(lambda: gp_fit.fit_gps(spec, X, Y, rand_logs=rand_logs, mesh=mesh4))
+    gp_fit.fit_gps(spec, X, Y, rand_logs=rand_logs)
+    t_u = wall_seconds(lambda: gp_fit.fit_gps(spec, X, Y, rand_logs=rand_logs))
+    delta = (fit_s.lml - fit_u.lml).double().cpu().numpy()
+    own64 = float((fit_s.lml.double() - lml_float64(spec.cfg, fit_s.params, X, Y.T, spec.alpha_jitter)).abs().max())
+    lml_scale = float(fit_u.lml.abs().median())
+    print(f"mesh fit: fit_gps ({Y.shape[1]} PCs x {spec.n_restarts + 1} restarts) with the instances split over "
+          f"{MESH_ENTRIES} mesh entries against the unsharded fit: after {MESH_FIT_SHORT_ITERS} iterations of every "
+          f"restart, LML max |delta| {short_err:.4g} nat (tol {LML_TOL_NAT}); after the whole schedule "
+          f"({spec.n_iters} iterations, rungs {gp_fit.halving_rungs(spec)}), where the f32 optimiser's paths part: "
+          f"|delta| per PC median {np.median(np.abs(delta)):.4g}, max {np.abs(delta).max():.4g}, "
+          f"{int((np.abs(delta) > LML_TOL_NAT).sum())} of {delta.size} PCs over {LML_TOL_NAT} nat, mean signed "
+          f"{delta.mean():+.4g} nat (median |LML| {lml_scale:.1f}; tol {MESH_FIT_PATH_TOL_NAT}); the sharded fit's LML "
+          f"against its float64 recompute max |delta| {own64:.4g} nat (tol {LML_TOL_NAT}); K3 launches by batch "
+          f"{batches_s} against {batches_u}; s per fit (programs cached) {t_s:.4f} against {t_u:.4f}", flush=True)
+    check(short_err <= LML_TOL_NAT, f"mesh fit: after {MESH_FIT_SHORT_ITERS} iterations LML off the unsharded fit by {short_err:.4g} nat")
+    check(own64 <= LML_TOL_NAT, f"mesh fit: LML off its float64 recompute by {own64:.4g} nat")
+    check(float(np.median(np.abs(delta))) <= LML_TOL_NAT and int((np.abs(delta) > LML_TOL_NAT).sum()) <= delta.size // 10
+          and float(np.abs(delta).max()) <= MESH_FIT_PATH_TOL_NAT,
+          f"mesh fit: LML off the unsharded fit: median {np.median(np.abs(delta)):.4g}, max {np.abs(delta).max():.4g} nat")
+    gp_fit.clear_fit_programs()
+    print("mesh: a run over several cards is not measured (this machine has one card); over distinct cards "
+          "run_mcmc(mesh=) runs its steps eagerly with the sharded log-posterior, and the closure batch and the fit "
+          "run one captured program per card", flush=True)
+    return total
+
+
+def phase_full_length(device, kernels, data: dict) -> dict:
+    """The main path at its full length, once: ``fit_emulators`` then
+    ``run_mcmc`` with 100 walkers, 1,000 burn-in and 50,000 production steps,
+    block mode, nothing written: wall seconds per phase, steps per second and
+    the peak allocated bytes. A measurement, not a threshold."""
+    from bayesian_inference_tpu_torch.mcmc.runner import run_mcmc
+    from bayesian_inference_tpu_torch.models.emulator import fit_emulators
+
+    config = production_config(WORK_DIR, data["table_dir"], N_WALKERS, FULL_BURN, FULL_STEPS, N_RESTARTS)
+    mcmc = mcmc_config_for(config, FULL_STEPS)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    with count_evaluations() as evals:
+        t0 = time.perf_counter()
+        artifacts = fit_emulators(data["emu"], seed=0, n_opt_iters=N_OPT_ITERS, device=device,
+                                  observables=data["observables"], write=False)
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter() - t0
+        out = run_mcmc(mcmc, seed=0, device=device, emulation_results=artifacts, observables=data["observables"],
+                       write=False)
+        torch.cuda.synchronize()
+        t_all = time.perf_counter() - t0
+    launches = counts(kernels)
+    peak = torch.cuda.max_memory_allocated() - base
+    timings = {"fit": t_fit, **out["timings"]}
+    logp, af = out["log_prob"], float(np.mean(out["acceptance_fraction"]))
+    tau = out["autocorrelation_time"]
+    print(f"full length: fit_emulators -> run_mcmc, block mode, {N_WALKERS} walkers x ({FULL_BURN} burn-in + {FULL_STEPS}) "
+          f"steps, write=False: wall seconds " + ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
+          + f" (statistics = autocorr), whole {t_all:.3f}; {FULL_STEPS / timings['production']:.1f} production steps/s "
+          f"({1e3 * timings['production'] / FULL_STEPS:.4f} ms/step); peak allocated bytes above the "
+          f"{base / 1e6:.1f} MB held before {peak / 1e6:.1f} MB; kernel launches {launches} for {evals['block']} "
+          f"block-mode evaluations; mean acceptance {af:.4f}; split-R-hat max {float(out['split_rhat'].max()):.4f}; tau "
+          f"{'none (chain shorter than 50 tau)' if tau is None else np.array2string(np.asarray(tau), precision=1)}; "
+          f"card: {nvidia_smi_line()}", flush=True)
+    check_k1_per_evaluation(launches, evals, "full length")
+    check(launches["fused_block_mvn"] == 2 * (FULL_BURN + FULL_STEPS) + 3 + 6 and launches["diag_chol_inv"] > 0,
+          f"full length: launches {launches}")
+    check(logp.shape == (FULL_STEPS, N_WALKERS) and bool(np.isfinite(logp).all()), "full length: non-finite log-probs")
+    check(ACCEPTANCE_RANGE[0] < af < ACCEPTANCE_RANGE[1], f"full length: mean acceptance {af:.4f} out of range")
+    check(bool(np.isfinite(out["split_rhat"]).all()), "full length: non-finite R-hat")
     return launches
 
 
@@ -1665,12 +2121,19 @@ def main() -> int:
     path_launches.append(phase_lowrank(device, kernels, reuse))
     for mode in ("lowrank", "block"):
         path_launches.append(phase_closure(device, kernels, reuse, mode))
+    option_launches, option_rates = phase_sampler_options(device, kernels, reuse)
+    path_launches.append(option_launches)
+    path_launches.append(phase_closure_slabs(device, kernels, reuse))
+    path_launches.append(phase_mesh(device, kernels, reuse, data))
+    path_launches.append(phase_full_length(device, kernels, data))
     predict_times = phase_predict(device, kernels, reuse)
     path_launches.append(phase_steer(device, kernels))
     phase_steer_refusal(device)
     total = {name: sum(p[name] for p in path_launches) for name in kernels}
-    print(f"kernel launches over the five path runs (fit->sample, lowrank analysis, lowrank and block closure "
-          f"batches, steer): {total}; whole script {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"kernel launches over the nine path runs (fit->sample, lowrank analysis, lowrank and block closure "
+          f"batches, the move's options, the closure batch in slabs, the mesh, the full-length main path, steer): "
+          f"{total}; whole script {time.perf_counter() - t_start:.1f} s", flush=True)
+    print("sampler options beside the default program: " + json.dumps(option_rates), flush=True)
     print("dense routes and predict (no kernel; dense as in JAX): "
           + json.dumps({"k1_nb56": k1_dense, "k4_k72": k4_dense, "predict": predict_times}), flush=True)
     print("sampler programs beside the eager loop: " + json.dumps(program_rates), flush=True)

@@ -27,7 +27,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 from dataclasses import dataclass
-from typing import Any, Sequence
+from typing import Any, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -116,11 +116,19 @@ def bucketize_blocks(
     return Us, Ds, d0s
 
 
+class GroupGPs(NamedTuple):
+    """One stacked GP batch of the likelihood: the kernel structure and the
+    posterior stacked over its PCs. A named pair: ``cfg, posts = group``."""
+
+    cfg: KernelConfig
+    posts: GPPosterior
+
+
 @dataclass
 class EmulatorLikelihood:
     """Device state of the log-posterior."""
 
-    groups: tuple[tuple[KernelConfig, GPPosterior], ...]
+    groups: tuple[GroupGPs, ...]
     theta_min: torch.Tensor  # (d,)
     theta_max: torch.Tensor  # (d,)
     # block mode: one entry per size bucket (see bucket_layout)
@@ -339,7 +347,7 @@ def build_likelihood(
             **{k: np.concatenate([e[k] for e in ems]) for k in ("alpha", "Kinv", "prior_var", "lml")},
         }
         ems = [fused]
-    groups = tuple(emulator_mod.posterior_from_artifact({"emulators": e}, device, dtype) for e in ems)
+    groups = tuple(GroupGPs(*emulator_mod.posterior_from_artifact({"emulators": e}, device, dtype)) for e in ems)
 
     return EmulatorLikelihood(
         groups=groups,

@@ -7,6 +7,8 @@ scipy). The device part (``device_mean_power``, ``device_split_rhat``,
 ``device_closure_stats``) runs the expensive forward transforms and moment
 sums on the chain's own device with ``torch.fft``, and downloads only the
 walker-averaged power spectra and the R-hats; the runners take it on CUDA.
+It takes a chain or the list of its time-axis slabs, as production leaves
+them.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import os
 import numpy as np
 import numpy.typing as npt
 import torch
+from scipy import fft as sfft
 
 
 def credible_interval(samples: npt.NDArray, confidence: float = 0.9, interval_type: str = "quantile"):
@@ -110,6 +113,21 @@ def split_rhat(chain: npt.NDArray) -> npt.NDArray:
     return np.sqrt(var_plus / np.where(W > 0, W, np.inf))
 
 
+def warm_fft_plans(n_t: int) -> None:
+    """Plan the host transforms of ``integrated_time`` at chain length ``n_t``
+    ahead of their first use: the capped-lag and the full-length pair, and the
+    power-of-two inverse of the ``device_mean_power`` path. scipy caches a
+    plan per process, so the runners call this while the device runs
+    production and the estimate afterwards pays its compute alone. Pure
+    scipy: safe beside device work, and it changes no result."""
+    x = np.zeros((n_t, 1), np.float32)
+    for L in sorted({_acf_lag_cap(n_t), n_t}):
+        nfft = sfft.next_fast_len(n_t + L - 1, real=True)
+        sfft.irfft(sfft.rfft(x, n=nfft, axis=0), n=nfft, axis=0)
+    nfft = 2 * _next_pow_two(n_t)
+    sfft.irfft(np.zeros((nfft // 2 + 1, 1), np.complex64), n=nfft, axis=0)
+
+
 def _tau_or_raise(tau_est: npt.NDArray, n_t: int, tol: float, quiet: bool) -> npt.NDArray:
     if np.any(tol * tau_est > n_t):
         msg = (
@@ -170,8 +188,6 @@ def _mean_acf_taus(chain: npt.NDArray, max_lag: int | None = None, max_chunk_ser
     series), which bounds the complex buffer. Padding to
     next_fast_len(n_t + L - 1) keeps the linear ACF exact at all lags < L.
     """
-    from scipy import fft as sfft
-
     n_t, P, n_w, n_d = chain.shape
     L = n_t if max_lag is None else min(int(max_lag), n_t)
     workers = os.cpu_count() or 1
@@ -194,8 +210,6 @@ def _taus_from_power(power: npt.NDArray, nfft: int, L: int, out_dtype, workers: 
     """Cumulative tau estimates from a walker-averaged power spectrum
     (nfft//2+1, P, n_d); the inverse transform runs in ``out_dtype`` (the
     chain's precision). Returns (L, P, n_d)."""
-    from scipy import fft as sfft
-
     _, P, n_d = power.shape
     mean_acf = sfft.irfft(power.reshape(-1, P * n_d).astype(out_dtype), n=nfft, axis=0, workers=workers)[:L]
     return 2.0 * np.cumsum(mean_acf, axis=0, dtype=np.float64).reshape(L, P, n_d) - 1.0
@@ -266,8 +280,6 @@ def integrated_time_per_walker(chain: npt.NDArray, c: float = 5.0, tol: float = 
     Returns (tau, reliable), both (n_walkers, n_dim); ``reliable`` is False
     where the chain is shorter than ``tol`` tau.
     """
-    from scipy import fft as sfft
-
     chain = np.asarray(chain)
     if not np.issubdtype(chain.dtype, np.floating):
         chain = chain.astype(np.float64)
@@ -297,15 +309,41 @@ def integrated_time_per_walker(chain: npt.NDArray, c: float = 5.0, tol: float = 
     return tau, tol * tau <= n_t
 
 
-def _device_power(chain: torch.Tensor, nfft: int) -> torch.Tensor:
-    """Walker-averaged |rfft|^2 of the centered, unit-norm series of one
-    (n_t, n_w, n_d) chain, in the chain's precision: (nfft//2+1, n_d)."""
-    n_t, n_w, n_d = chain.shape
-    x = chain.reshape(n_t, n_w * n_d)
-    x = x - x.mean(dim=0, keepdim=True)
-    norm2 = (x * x).sum(dim=0)
-    x = x / torch.sqrt(torch.where(norm2 == 0.0, 1.0, norm2))
-    f = torch.fft.rfft(x, n=nfft, dim=0)
+def _as_slabs(chain_pieces) -> list:
+    """A chain, or a list of its time-axis slabs, as the list."""
+    return list(chain_pieces) if isinstance(chain_pieces, (list, tuple)) else [chain_pieces]
+
+
+def _padded_series(slabs: list, nfft: int, point: int | None = None) -> tuple[torch.Tensor, int, tuple[int, int]]:
+    """The chain of the time-axis ``slabs`` (each (n, n_w, n_d), or
+    (n, P, n_w, n_d) with ``point`` naming one of the P) laid into the
+    transform's zero-padded input, (nfft, n_w * n_d) on the first tensor
+    slab's device: filled slab by slab, so the chain is never concatenated
+    into a copy of its own. Slabs may be tensors of any device or host
+    arrays. Returns (buffer, n_t, (n_w, n_d))."""
+    like = next((s for s in slabs if isinstance(s, torch.Tensor)), None)
+    if like is None:
+        like = torch.as_tensor(slabs[0])
+    n_w, n_d = like.shape[-2:]
+    n_t = sum(s.shape[0] for s in slabs)
+    x = like.new_zeros((nfft, n_w * n_d))
+    t = 0
+    for s in slabs:
+        piece = torch.as_tensor(s if point is None else s[:, point])
+        x[t:t + piece.shape[0]] = piece.reshape(piece.shape[0], -1)
+        t += piece.shape[0]
+    return x, n_t, (n_w, n_d)
+
+
+def _device_power(x: torch.Tensor, n_t: int, n_w: int, n_d: int) -> torch.Tensor:
+    """Walker-averaged |rfft|^2 of the centered, unit-norm series in the first
+    ``n_t`` rows of the zero-padded buffer ``x`` (``_padded_series``), which
+    is overwritten, in the chain's precision: (nfft//2+1, n_d)."""
+    v = x[:n_t]
+    v -= v.mean(dim=0, keepdim=True)
+    norm2 = (v * v).sum(dim=0)
+    v /= torch.sqrt(torch.where(norm2 == 0.0, 1.0, norm2))
+    f = torch.fft.rfft(x, dim=0)
     return (f.real**2 + f.imag**2).reshape(-1, n_w, n_d).mean(dim=1)
 
 
@@ -325,26 +363,46 @@ def _device_rhat(chain: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(var_plus / torch.where(W > 0, W, torch.inf))
 
 
-def device_mean_power(chain: torch.Tensor) -> tuple[np.ndarray, int]:
-    """Walker-averaged ACF power spectrum of a (n_t, n_w, n_d) chain, computed
-    on the chain's device; only the (nfft//2+1, n_d) spectrum is downloaded.
-    Pass the result to ``integrated_time(..., mean_power=...)``. Full-length
-    transform: nfft = 2 * next_pow_two(n_t), emcee's choice."""
-    nfft = 2 * _next_pow_two(chain.shape[0])
-    return _device_power(chain, nfft).cpu().numpy(), nfft
+def _n_steps(slabs: list) -> int:
+    return sum(s.shape[0] for s in slabs)
 
 
-def device_split_rhat(chain: torch.Tensor) -> np.ndarray:
-    """``split_rhat`` computed on the chain's device; downloads (n_d,)."""
-    return _device_rhat(chain).cpu().numpy()
+def device_mean_power(chain_pieces) -> tuple[np.ndarray, int]:
+    """Walker-averaged ACF power spectrum of a (n_t, n_w, n_d) chain, or of
+    the list of its time-axis slabs, computed on the chain's device; only the
+    (nfft//2+1, n_d) spectrum is downloaded. Pass the result to
+    ``integrated_time(..., mean_power=...)``. Full-length transform:
+    nfft = 2 * next_pow_two(n_t), emcee's choice. The slabs go straight into
+    the transform's padded input; the result does not depend on where the
+    chain is cut."""
+    slabs = _as_slabs(chain_pieces)
+    nfft = 2 * _next_pow_two(_n_steps(slabs))
+    x, n_t, (n_w, n_d) = _padded_series(slabs, nfft)
+    return _device_power(x, n_t, n_w, n_d).cpu().numpy(), nfft
 
 
-def device_closure_stats(chain: torch.Tensor) -> tuple[np.ndarray, int, np.ndarray]:
+def device_split_rhat(chain_pieces) -> np.ndarray:
+    """``split_rhat`` of a chain, or of the list of its time-axis slabs,
+    computed on the chain's device; downloads (n_d,)."""
+    slabs = _as_slabs(chain_pieces)
+    n_t = _n_steps(slabs)
+    x, _, (n_w, n_d) = _padded_series(slabs, n_t)
+    return _device_rhat(x.reshape(n_t, n_w, n_d)).cpu().numpy()
+
+
+def device_closure_stats(chain_pieces) -> tuple[np.ndarray, int, np.ndarray]:
     """Per-point power spectra and split-R-hats of a batched closure chain
-    (n_t, P, n_w, n_d), on its device, one point at a time (the transform's
-    buffer stays one point's size). Returns (power (P, nfft//2+1, n_d), nfft,
-    rhat (P, n_d)); pass ``(power[p], nfft)`` to ``integrated_time_from_power``."""
-    nfft = 2 * _next_pow_two(chain.shape[0])
-    power = torch.stack([_device_power(chain[:, p], nfft) for p in range(chain.shape[1])])
-    rhat = torch.stack([_device_rhat(chain[:, p]) for p in range(chain.shape[1])])
-    return power.cpu().numpy(), nfft, rhat.cpu().numpy()
+    (n_t, P, n_w, n_d), or of the list of its time-axis slabs, on its device,
+    one point at a time: a point's series go slab by slab into the
+    transform's padded input, which both statistics read, so the buffers stay
+    one point's size and the batch is never concatenated. Returns
+    (power (P, nfft//2+1, n_d), nfft, rhat (P, n_d)); pass ``(power[p], nfft)``
+    to ``integrated_time_from_power``."""
+    slabs = _as_slabs(chain_pieces)
+    nfft = 2 * _next_pow_two(_n_steps(slabs))
+    powers, rhats = [], []
+    for p in range(slabs[0].shape[1]):
+        x, n_t, (n_w, n_d) = _padded_series(slabs, nfft, point=p)
+        rhats.append(_device_rhat(x[:n_t].reshape(n_t, n_w, n_d)))
+        powers.append(_device_power(x, n_t, n_w, n_d))
+    return torch.stack(powers).cpu().numpy(), nfft, torch.stack(rhats).cpu().numpy()

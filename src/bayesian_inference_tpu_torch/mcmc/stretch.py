@@ -1,13 +1,21 @@
 """Affine-invariant ensemble sampler (Goodman & Weare 2010 stretch move).
 
 Port of ``bayesian_inference_tpu.mcmc.stretch``. Semantics follow emcee's
-StretchMove with its defaults:
-  - the ensemble is split into two halves, the walker order shuffled every
-    iteration (emcee's RedBlueMove randomize_split)
+StretchMove:
+  - the ensemble is split into two halves; with ``randomize_split`` (the
+    default, emcee's RedBlueMove) the walker order is shuffled every iteration
   - for each walker in the half being updated: partner X_c drawn uniformly
     from the complementary half; z ~ g(z) with density ∝ 1/sqrt(z) on
-    [1/a, a] via z = ((a-1)u + 1)^2 / a, a = 2; proposal Y = X_c + z (X - X_c)
+    [1/a, a] via z = ((a-1)u + 1)^2 / a (``a`` = 2 by default); proposal
+    Y = X_c + z (X - X_c)
   - accept with log-probability min(0, (d-1) log z + logp(Y) - logp(X))
+
+``thin`` keeps every ``thin``-th state: one output row is the state after
+``thin`` sub-steps, and its acceptance entry the walker mean of the
+acceptances over those sub-steps (it can reach ``thin``), as in the JAX
+package. ``store_chain=False`` keeps no chain and no log-probs, only that
+acceptance trace. A chunk draws one row per sub-step whatever ``thin`` is, so
+a thinned chunk consumes the random stream of an unthinned one of its length.
 
 All draws of a chunk are generated up front from a ``torch.Generator`` (or
 injected, so a test can hand both packages the same numbers); the steps then
@@ -47,10 +55,9 @@ def _take_walkers(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, -2, idx[..., None].expand(*idx.shape, x.shape[-1]))
 
 
-def _stretch_half_draws(u, partners, u_acc, x_upd, logp_upd, x_comp, log_prob_fn: LogProbFn):
+def _stretch_half_draws(u, partners, u_acc, x_upd, logp_upd, x_comp, log_prob_fn: LogProbFn, a: float = STRETCH_A):
     """One half-update from pregenerated draws. Returns (x, logp, accepted)."""
     d = x_upd.shape[-1]
-    a = STRETCH_A
     z = ((a - 1.0) * u + 1.0) ** 2 / a
     x_c = _take_walkers(x_comp, partners)
     y = x_c + z[..., None] * (x_upd - x_c)
@@ -64,13 +71,20 @@ def _stretch_half_draws(u, partners, u_acc, x_upd, logp_upd, x_comp, log_prob_fn
     return x_new, logp_new, accept
 
 
-def pregen_rands(n: int, W: int, generator: torch.Generator, dtype: torch.dtype) -> dict[str, torch.Tensor]:
+def pregen_rands(n: int, W: int, generator: torch.Generator, dtype: torch.dtype,
+                 randomize_split: bool = True) -> dict[str, torch.Tensor]:
     """Every draw of ``n`` ensemble steps, laid out like the JAX package's
-    ``_pregen_rands``: perm/inv (n, W), u_z/partners/u_acc (n, 2, W // 2)."""
+    ``_pregen_rands``: perm/inv (n, W), u_z/partners/u_acc (n, 2, W // 2).
+    Without ``randomize_split`` the permutation is the identity and nothing
+    is drawn for it."""
     half = W // 2
     device = generator.device
-    perm = torch.argsort(torch.rand((n, W), generator=generator, device=device), dim=-1)
-    inv = torch.argsort(perm, dim=-1)
+    if randomize_split:
+        perm = torch.argsort(torch.rand((n, W), generator=generator, device=device), dim=-1)
+        inv = torch.argsort(perm, dim=-1)
+    else:
+        perm = torch.arange(W, device=device).expand(n, W).contiguous()
+        inv = perm.clone()
     return {
         "perm": perm,
         "inv": inv,
@@ -81,16 +95,17 @@ def pregen_rands(n: int, W: int, generator: torch.Generator, dtype: torch.dtype)
 
 
 def pregen_rands_batched(
-    n: int, W: int, generators: Sequence[torch.Generator], dtype: torch.dtype
+    n: int, W: int, generators: Sequence[torch.Generator], dtype: torch.dtype, randomize_split: bool = True
 ) -> dict[str, torch.Tensor]:
     """``pregen_rands`` of each point from its own generator, stacked on axis
     1: perm/inv (n, P, W), u_z/partners/u_acc (n, P, 2, W // 2). Each point's
     draws are exactly those of a sequential run seeded like its generator."""
-    per_point = [pregen_rands(n, W, g, dtype) for g in generators]
+    per_point = [pregen_rands(n, W, g, dtype, randomize_split) for g in generators]
     return {k: torch.stack([r[k] for r in per_point], dim=1) for k in per_point[0]}
 
 
-def _step_with_rands(state: EnsembleState, r: dict[str, torch.Tensor], log_prob_fn: LogProbFn) -> EnsembleState:
+def _step_with_rands(state: EnsembleState, r: dict[str, torch.Tensor], log_prob_fn: LogProbFn,
+                     a: float = STRETCH_A) -> EnsembleState:
     """One full ensemble step from one step's slice of the draws.
 
     The updated ensemble is assembled by concatenation and a gather with the
@@ -105,9 +120,9 @@ def _step_with_rands(state: EnsembleState, r: dict[str, torch.Tensor], log_prob_
         return r["u_z"][..., i, :], r["partners"][..., i, :], r["u_acc"][..., i, :]
 
     x0, lp0, a0 = _stretch_half_draws(
-        *draws(0), x[..., :half, :], logp[..., :half], x[..., half:, :], log_prob_fn
+        *draws(0), x[..., :half, :], logp[..., :half], x[..., half:, :], log_prob_fn, a
     )
-    x1, lp1, a1 = _stretch_half_draws(*draws(1), x[..., half:, :], logp[..., half:], x0, log_prob_fn)
+    x1, lp1, a1 = _stretch_half_draws(*draws(1), x[..., half:, :], logp[..., half:], x0, log_prob_fn, a)
 
     inv = r["inv"]
     return EnsembleState(
@@ -137,39 +152,57 @@ def init_state_batched(log_prob_fn: LogProbFn, x0: torch.Tensor) -> EnsembleStat
     return init_state(log_prob_fn, x0)
 
 
-def chunk_outputs(n_steps: int, state: EnsembleState):
-    """Empty per-step outputs of ``n_steps`` steps from ``state``: chain
-    (n, ..., W, d), log-probs (n, ..., W) and mean acceptance (n, ...)."""
+def _check_thin(n_steps: int, thin: int) -> None:
+    if thin < 1 or n_steps % thin:
+        raise ValueError(f"thin {thin} must divide n_steps {n_steps}")
+
+
+def chunk_outputs(n_rows: int, state: EnsembleState, store_chain: bool = True):
+    """Empty outputs of ``n_rows`` output rows from ``state``: chain
+    (n, ..., W, d), log-probs (n, ..., W) and mean acceptance (n, ...); the
+    acceptance alone, as a one-element tuple, without ``store_chain``."""
     dt, dev = state.coords.dtype, state.coords.device
+    acc = torch.empty((n_rows, *state.log_prob.shape[:-1]), dtype=dt, device=dev)
+    if not store_chain:
+        return (acc,)
     return (
-        torch.empty((n_steps, *state.coords.shape), dtype=dt, device=dev),
-        torch.empty((n_steps, *state.log_prob.shape), dtype=state.log_prob.dtype, device=dev),
-        torch.empty((n_steps, *state.log_prob.shape[:-1]), dtype=dt, device=dev),
+        torch.empty((n_rows, *state.coords.shape), dtype=dt, device=dev),
+        torch.empty((n_rows, *state.log_prob.shape), dtype=state.log_prob.dtype, device=dev),
+        acc,
     )
 
 
 def step_at(state: EnsembleState, rands: dict[str, torch.Tensor], outputs, t: torch.Tensor,
-            log_prob_fn: LogProbFn) -> EnsembleState:
-    """The ensemble step at index ``t``, a one-element int64 tensor on the
-    state's device: reads row ``t`` of a chunk's draws, writes row ``t`` of
-    the chunk's ``outputs`` (``chunk_outputs`` layout) and returns the new
-    state. The index is a tensor so that the eager loop and a captured device
-    program (mcmc/programs.py) run the same ops."""
-    chain, log_prob, acc = outputs
-    new = _step_with_rands(state, {k: v.index_select(0, t)[0] for k, v in rands.items()}, log_prob_fn)
-    chain.index_copy_(0, t, new.coords[None])
-    log_prob.index_copy_(0, t, new.log_prob[None])
+            log_prob_fn: LogProbFn, a: float = STRETCH_A, thin: int = 1) -> EnsembleState:
+    """The output row at index ``t``, a one-element int64 tensor on the
+    state's device: ``thin`` ensemble steps reading rows ``t * thin`` to
+    ``t * thin + thin - 1`` of a chunk's draws, then row ``t`` of the chunk's
+    ``outputs`` (``chunk_outputs`` layout, with or without the chain) is
+    written and the new state returned. The index is a tensor so that the
+    eager loop and a captured device program (mcmc/programs.py) run the same
+    ops."""
+    *stored, acc = outputs
+    new = state
+    for j in range(thin):
+        row = t if thin == 1 else t * thin + j
+        new = _step_with_rands(new, {k: v.index_select(0, row)[0] for k, v in rands.items()}, log_prob_fn, a)
+    if stored:
+        chain, log_prob = stored
+        chain.index_copy_(0, t, new.coords[None])
+        log_prob.index_copy_(0, t, new.log_prob[None])
     acc.index_copy_(0, t, (new.n_accepted - state.n_accepted).to(acc.dtype).mean(dim=-1)[None])
     return new
 
 
-def _run_steps(state: EnsembleState, log_prob_fn: LogProbFn, n_steps: int, rands: dict[str, torch.Tensor]):
-    outputs = chunk_outputs(n_steps, state)
+def _run_steps(state: EnsembleState, log_prob_fn: LogProbFn, n_steps: int, rands: dict[str, torch.Tensor],
+               a: float, store_chain: bool, thin: int):
+    _check_thin(n_steps, thin)
+    outputs = chunk_outputs(n_steps // thin, state, store_chain)
     t = torch.zeros(1, dtype=torch.long, device=state.coords.device)
-    for _ in range(n_steps):
-        state = step_at(state, rands, outputs, t, log_prob_fn)
+    for _ in range(n_steps // thin):
+        state = step_at(state, rands, outputs, t, log_prob_fn, a, thin)
         t += 1
-    return state, outputs
+    return state, (outputs if store_chain else outputs[0])
 
 
 def step(
@@ -177,18 +210,22 @@ def step(
     log_prob_fn: LogProbFn,
     generator: torch.Generator | None = None,
     rands: dict[str, torch.Tensor] | None = None,
+    a: float = STRETCH_A,
+    randomize_split: bool = True,
 ) -> EnsembleState:
     """One full ensemble step (both halves updated).
 
     The step's draws come from ``rands`` when given (one step's slice of the
     ``pregen_rands`` layout: perm/inv (W,), u_z/partners/u_acc (2, W // 2)),
-    else from ``generator``.
+    else from ``generator`` (``randomize_split`` then says whether the walker
+    order is shuffled).
     """
     if rands is None:
         if generator is None:
             raise ValueError("step needs a generator or injected draws")
-        rands = {k: v[0] for k, v in pregen_rands(1, state.coords.shape[0], generator, state.coords.dtype).items()}
-    return _step_with_rands(state, rands, log_prob_fn)
+        drawn = pregen_rands(1, state.coords.shape[0], generator, state.coords.dtype, randomize_split)
+        rands = {k: v[0] for k, v in drawn.items()}
+    return _step_with_rands(state, rands, log_prob_fn, a)
 
 
 def run_chunk(
@@ -197,18 +234,24 @@ def run_chunk(
     n_steps: int,
     generator: torch.Generator | None = None,
     rands: dict[str, torch.Tensor] | None = None,
+    a: float = STRETCH_A,
+    randomize_split: bool = True,
+    store_chain: bool = True,
+    thin: int = 1,
 ):
     """Advance the ensemble by ``n_steps``.
 
-    Draws come from ``rands`` when given (``pregen_rands`` layout), else from
-    ``generator``. Returns (final_state, (chain (n, W, d), log_prob (n, W),
-    per-step mean acceptance (n,))), all on the state's device.
+    Draws come from ``rands`` when given (``pregen_rands`` layout, one row per
+    step whatever ``thin`` is), else from ``generator``. Returns (final_state,
+    (chain (n // thin, W, d), log_prob (n // thin, W), acceptance
+    (n // thin,))), all on the state's device; with ``store_chain=False``
+    (final_state, acceptance). ``thin`` must divide ``n_steps``.
     """
     if rands is None:
         if generator is None:
             raise ValueError("run_chunk needs a generator or injected draws")
-        rands = pregen_rands(n_steps, state.coords.shape[0], generator, state.coords.dtype)
-    return _run_steps(state, log_prob_fn, n_steps, rands)
+        rands = pregen_rands(n_steps, state.coords.shape[0], generator, state.coords.dtype, randomize_split)
+    return _run_steps(state, log_prob_fn, n_steps, rands, a, store_chain, thin)
 
 
 def run_chunk_batched(
@@ -217,19 +260,25 @@ def run_chunk_batched(
     n_steps: int,
     generators: Sequence[torch.Generator] | None = None,
     rands: dict[str, torch.Tensor] | None = None,
+    a: float = STRETCH_A,
+    randomize_split: bool = True,
+    store_chain: bool = True,
+    thin: int = 1,
 ):
     """Advance P independent ensembles (state leaves (P, W, ...)) by ``n_steps``.
 
     Draws come from ``rands`` when given (``pregen_rands_batched`` layout),
     else one ``pregen_rands`` per point from ``generators[p]``. Returns
-    (final_states, (chain (n, P, W, d), log_prob (n, P, W), per-step mean
-    acceptance (n, P))).
+    (final_states, (chain (n // thin, P, W, d), log_prob (n // thin, P, W),
+    acceptance (n // thin, P))); with ``store_chain=False`` (final_states,
+    acceptance).
     """
     if rands is None:
         if generators is None or len(generators) != states.coords.shape[0]:
             raise ValueError("run_chunk_batched needs one generator per point or injected draws")
-        rands = pregen_rands_batched(n_steps, states.coords.shape[1], generators, states.coords.dtype)
-    return _run_steps(states, log_prob_fn, n_steps, rands)
+        rands = pregen_rands_batched(n_steps, states.coords.shape[1], generators, states.coords.dtype,
+                                     randomize_split)
+    return _run_steps(states, log_prob_fn, n_steps, rands, a, store_chain, thin)
 
 
 def run_ensemble(
@@ -239,17 +288,21 @@ def run_ensemble(
     generator: torch.Generator | None = None,
     rands: dict[str, torch.Tensor] | None = None,
     chunk_size: int | None = None,
+    a: float = STRETCH_A,
+    randomize_split: bool = True,
+    store_chain: bool = True,
+    thin: int = 1,
 ) -> dict[str, torch.Tensor]:
     """Run the sampler for ``n_steps`` from the ensemble ``x0`` (W, d).
 
     ``chunk_size`` splits the run into chunks of that many steps (it must
-    divide ``n_steps``), each pregenerating its own draws from ``generator``;
-    None runs one chunk. ``rands`` injects the draws of all ``n_steps``
-    instead (``pregen_rands`` layout).
+    divide ``n_steps``, and ``thin`` must divide it), each pregenerating its
+    own draws from ``generator``; None runs one chunk. ``rands`` injects the
+    draws of all ``n_steps`` instead (``pregen_rands`` layout).
 
-    Returns {'chain': (n_steps, W, d), 'log_prob': (n_steps, W),
-    'acceptance_trace': (n_steps,) per-step mean acceptance, 'coords',
-    'final_log_prob', 'acceptance_fraction'}, as the JAX package's
+    Returns {'chain': (n_steps // thin, W, d), 'log_prob': (n_steps // thin, W)
+    (both only with ``store_chain``), 'acceptance_trace': (n_steps // thin,),
+    'coords', 'final_log_prob', 'acceptance_fraction'}, as the JAX package's
     ``run_ensemble`` does.
     """
     if x0.shape[0] % 2:
@@ -261,14 +314,16 @@ def run_ensemble(
     pieces = []
     for start in range(0, n_steps, chunk_size):
         r = None if rands is None else {k: v[start:start + chunk_size] for k, v in rands.items()}
-        state, ys = run_chunk(state, log_prob_fn, chunk_size, generator=generator, rands=r)
-        pieces.append(ys)
-    chain, log_prob, acc = (p[0] if len(p) == 1 else torch.cat(p) for p in zip(*pieces))
-    return {
-        "chain": chain,
-        "log_prob": log_prob,
+        state, ys = run_chunk(state, log_prob_fn, chunk_size, generator=generator, rands=r, a=a,
+                              randomize_split=randomize_split, store_chain=store_chain, thin=thin)
+        pieces.append(ys if store_chain else (ys,))
+    *stored, acc = (p[0] if len(p) == 1 else torch.cat(p) for p in zip(*pieces))
+    result = {
         "acceptance_trace": acc,
         "coords": state.coords,
         "final_log_prob": state.log_prob,
         "acceptance_fraction": state.n_accepted.to(x0.dtype) / n_steps,
     }
+    if store_chain:
+        result["chain"], result["log_prob"] = stored
+    return result

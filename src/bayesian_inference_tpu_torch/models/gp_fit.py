@@ -39,6 +39,7 @@ from bayesian_inference_tpu_torch.models.gp import (
 )
 from bayesian_inference_tpu_torch.ops import _native
 from bayesian_inference_tpu_torch.ops.gram import KernelConfig, KernelParams, pairwise_sqdiff
+from bayesian_inference_tpu_torch.parallel.mesh import Mesh, shard_leading_axis
 
 logger = logging.getLogger(__name__)
 
@@ -402,6 +403,7 @@ def fit_gps(
     generator: torch.Generator | None = None,
     rand_logs: torch.Tensor | None = None,
     eager: bool = False,
+    mesh: Mesh | None = None,
 ) -> GPPosterior:
     """Fit one GP per column of Y_pc (N, k); returns the stacked GPPosterior.
 
@@ -411,8 +413,19 @@ def fit_gps(
     semantics). Device and dtype follow ``X``. Every stage runs through its
     ``FitProgram``; ``eager=True`` runs the eager loop instead (the reference
     the programs are held against).
+
+    ``mesh``: a ``parallel.mesh.Mesh`` whose first device holds ``X``. The
+    flattened instance axis (PCs x restarts) of every stage is split over its
+    devices, each running the stage's ``FitProgram`` for its share (on a card
+    a captured graph of its own, through kernel K3); the instances are
+    independent, so nothing crosses between devices inside a stage. A rung's
+    choice of survivors needs every instance's LML: the shares are gathered
+    on the first device once per stage. A mesh of one device runs exactly as
+    no mesh.
     """
     dev, dt = X.device, X.dtype
+    if mesh is not None and mesh.devices[0] != dev:
+        raise ValueError(f"fit_gps: the mesh starts on {mesh.devices[0]}, X lies on {dev}")
     N, k = Y_pc.shape
     lo, hi, theta0 = (torch.as_tensor(np.asarray(a), dtype=dt, device=dev) for a in (spec.log_lo, spec.log_hi, spec.theta0))
     P = theta0.shape[0]
@@ -428,17 +441,29 @@ def fit_gps(
 
     D2 = pairwise_sqdiff(X)
     Yt = Y_pc.T
-    if eager:
-        obj = _Objective(spec.cfg, spec.alpha_jitter, D2, lo, hi)
-        steps = torch.tensor([float(s) for s in spec.trial_steps], dtype=dt, device=dev)
+    operands: dict[torch.device, tuple] = {dev: (D2, lo, hi)}  # the stages' shared operands, per device
 
-        def run_stage(u_flat, Y_flat, n_iters):
+    def run_on(device, u_flat, Y_flat, n_iters):
+        """One stage's iterations for the instances ``u_flat``, on ``device``."""
+        if device not in operands:
+            operands[device] = tuple(t.to(device, non_blocking=True) for t in operands[dev])
+        D2_d, lo_d, hi_d = operands[device]
+        if eager:
+            obj = _Objective(spec.cfg, spec.alpha_jitter, D2_d, lo_d, hi_d)
+            steps = torch.tensor([float(s) for s in spec.trial_steps], dtype=dt, device=device)
             return _optimize(u_flat, Y_flat, obj, steps, n_iters)
-    else:
-        def run_stage(u_flat, Y_flat, n_iters):
-            program = fit_program(spec.cfg, spec.alpha_jitter, spec.trial_steps, u_flat.shape[0], N, X.shape[1], P,
-                                  dt, dev)
-            return program.run(u_flat, Y_flat, D2, lo, hi, n_iters)
+        program = fit_program(spec.cfg, spec.alpha_jitter, spec.trial_steps, u_flat.shape[0], N, X.shape[1], P,
+                              dt, device)
+        return program.run(u_flat, Y_flat, D2_d, lo_d, hi_d, n_iters)
+
+    def run_stage(u_flat, Y_flat, n_iters):
+        if mesh is None or mesh.size == 1:
+            return run_on(dev, u_flat, Y_flat, n_iters)
+        # Every share is enqueued on its device before the first is gathered.
+        shares = [run_on(d, u_i, Y_i, n_iters)
+                  for d, u_i, Y_i in zip(mesh.devices, shard_leading_axis(u_flat, mesh),
+                                         shard_leading_axis(Y_flat, mesh)) if u_i.shape[0]]
+        return tuple(torch.cat([t.to(dev, non_blocking=True) for t in ts]) for ts in zip(*shares))
 
     def optimize(pool_u: torch.Tensor, pool: int, n_iters: int) -> tuple[torch.Tensor, torch.Tensor]:
         """``n_iters`` iterations from the (k, pool, P) starting points."""
@@ -455,6 +480,8 @@ def fit_gps(
     best_u = u2.reshape(k, pool, P)[torch.arange(k, device=dev), best]
     how = ("the eager loop" if eager else "one captured CUDA graph per iteration" if dev.type == "cuda"
            else "program iterations run eagerly on the CPU")
+    if mesh is not None and mesh.size > 1:
+        how += f", the instances split over {mesh.size} mesh devices ({mesh.distinct} distinct)"
     logger.info(f"GP fit iterations: {k} PCs x {R} restarts, rungs (iterations, keep) {list(rungs)}, "
                 f"{len(spec.trial_steps)} trial step(s), {spec.n_iters} iterations in all; {how}")
 

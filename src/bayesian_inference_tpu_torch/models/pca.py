@@ -4,21 +4,27 @@ over from ``bayesian_inference_tpu.models.pca``).
 Conventions match sklearn's StandardScaler + PCA(svd_solver='full'):
 features centered and scaled to unit variance (ddof=0), components are the
 right singular vectors with sklearn's sign flip, explained_variance_ =
-s^2 / (n_samples - 1). PCA is one-time setup math, so it stays on the host in
-float64; callers move the pieces the device needs.
+s^2 / (n_samples - 1). PCA is one-time setup math, so ``fit_pca`` stays on the
+host in float64; callers move the pieces the device needs. ``PCAState``'s
+methods are plain arithmetic on its leaves, so a state whose leaves are
+tensors (``from_host_dict(d, device=...)``) transforms tensors on their
+device: Z = ((Y - mean) / scale) @ components.T, and back.
 """
 
 from __future__ import annotations
 
-from dataclasses import asdict, dataclass
+from dataclasses import dataclass, fields
 from typing import Any
 
 import numpy as np
+import torch
 
 
 @dataclass
 class PCAState:
-    """Fitted scaler + PCA, numpy leaves."""
+    """Fitted scaler + PCA. Leaves are numpy arrays (what ``fit_pca`` returns)
+    or tensors of one device; the arguments of its methods are of the same
+    kind."""
 
     mean: np.ndarray                      # (n_features,)
     scale: np.ndarray                     # (n_features,) std, ddof=0
@@ -27,11 +33,48 @@ class PCAState:
     explained_variance_ratio: np.ndarray  # (n_components,)
     singular_values: np.ndarray           # (n_components,)
 
-    def unscale_features(self, Y_scaled: np.ndarray) -> np.ndarray:
+    @property
+    def n_components(self) -> int:
+        return self.components.shape[0]
+
+    def scale_features(self, Y):
+        return (Y - self.mean) / self.scale
+
+    def unscale_features(self, Y_scaled):
         return Y_scaled * self.scale + self.mean
 
+    def transform(self, Y, n_pc: int | None = None):
+        """PC scores of ``Y`` (..., n_features) on the first ``n_pc`` components (all when None)."""
+        comps = self.components if n_pc is None else self.components[:n_pc]
+        return self.scale_features(Y) @ comps.T
+
+    def inverse_transform(self, Z):
+        """Features from the scores ``Z`` (..., n_pc) of the first n_pc components."""
+        return self.unscale_features(Z @ self.components[: Z.shape[-1]])
+
+    def reconstruction(self, Y, n_pc: int):
+        """Round trip of ``Y`` through the first ``n_pc`` components (diagnostics)."""
+        return self.inverse_transform(self.transform(Y, n_pc=n_pc))
+
     def to_host_dict(self) -> dict[str, Any]:
-        return {k: np.asarray(v) for k, v in asdict(self).items()}
+        def host(v):
+            return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+        return {f.name: host(getattr(self, f.name)) for f in fields(self)}
+
+    @classmethod
+    def from_host_dict(cls, d: dict[str, Any], device=None, dtype: torch.dtype | None = None) -> "PCAState":
+        """The state of ``to_host_dict``'s dictionary. ``device=None`` keeps
+        numpy leaves (the host state ``fit_pca`` gives); a device makes them
+        tensors there, of ``dtype`` (float32 on CUDA, float64 on the CPU when
+        None), and a CUDA device raises where there is no card."""
+        if device is None:
+            return cls(**{k: np.asarray(v) for k, v in d.items()})
+        from bayesian_inference_tpu_torch.models.emulator import default_dtype, resolve_device
+
+        device = resolve_device(device)
+        dtype = dtype or default_dtype(device)
+        return cls(**{k: torch.tensor(np.asarray(v), dtype=dtype, device=device) for k, v in d.items()})
 
 
 def _svd_sign_flip(U, Vt):

@@ -103,9 +103,13 @@ class NativeKernel:
         self._lib = lib
         return lib
 
-    def launch(self, entry: str, *args, batch: int | None = None) -> None:
+    def launch(self, entry: str, *args, device: torch.device, batch: int | None = None) -> None:
+        """Call the C entry point ``entry``, which launches on the current
+        device: ``device``, the operands' own, is made current around the call
+        (under a mesh a kernel is launched for other cards than the first)."""
         lib = self.build()
-        rc = getattr(lib, entry)(*args)
+        with torch.cuda.device(device):
+            rc = getattr(lib, entry)(*args)
         if rc != 0:
             raise RuntimeError(f"{entry} failed: {lib.error_string(rc).decode()} (cudaError {rc})")
         self.launches += 1

@@ -47,7 +47,7 @@ def _diag_chol_inv_cuda(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     Linv = torch.empty_like(A)
     KERNEL.launch(
         "diag_chol_inv_f32", A.data_ptr(), L.data_ptr(), Linv.data_ptr(),
-        A.shape[0], A.shape[-1], stream_handle(A.device), batch=A.shape[0],
+        A.shape[0], A.shape[-1], stream_handle(A.device), device=A.device, batch=A.shape[0],
     )
     return L, Linv
 

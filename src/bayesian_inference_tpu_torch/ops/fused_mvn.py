@@ -87,7 +87,7 @@ def _fused_block_mvn_cuda(Us, Ds, d0s, z, v) -> torch.Tensor:
         out = torch.empty((W,), dtype=z.dtype, device=z.device)
         KERNEL.launch(
             "fused_block_mvn_buckets_f32", n, *(ctypes.addressof(a) for a in arrays), z.data_ptr(), v.data_ptr(),
-            ll_blk.data_ptr(), out.data_ptr(), k, W, W // n_points, stream_handle(z.device),
+            ll_blk.data_ptr(), out.data_ptr(), k, W, W // n_points, stream_handle(z.device), device=z.device,
         )
     for i in range(len(Us)):
         if i not in kernel:

@@ -39,6 +39,21 @@ class KernelParams:
     log_noise: torch.Tensor         # (...,)  white-noise level (variance), log
     log_constant: torch.Tensor      # (...,)  constant kernel value, log
 
+    @classmethod
+    def create(cls, length_scale, noise=1.0, constant=1.0, device="cuda", dtype: torch.dtype | None = None) -> "KernelParams":
+        """Log-space parameters from natural-scale values (numbers, arrays or
+        tensors), as tensors on ``device`` (float32 on CUDA, float64 on the
+        CPU when ``dtype`` is None)."""
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {device}: torch finds no CUDA device; pass device='cpu' to run on the CPU")
+        dtype = dtype or (torch.float64 if device.type == "cpu" else torch.float32)
+
+        def log(x):
+            return torch.log(torch.as_tensor(x, dtype=dtype, device=device))
+
+        return cls(log_length_scale=log(length_scale), log_noise=log(noise), log_constant=log(constant))
+
 
 def _scaled_sqdist(X1: torch.Tensor, X2: torch.Tensor, length_scale: torch.Tensor) -> torch.Tensor:
     """||(x-y)/ls||^2 for all pairs; (..., n1, n2).
@@ -124,10 +139,12 @@ def train_gram(cfg: KernelConfig, params: KernelParams, X: torch.Tensor, alpha_j
     return _add_diag(K, _white_diag(cfg, params, alpha_jitter, K))
 
 
-def prior_variance(cfg: KernelConfig, params: KernelParams) -> torch.Tensor:
+def prior_variance(cfg: KernelConfig, params: KernelParams, dtype: torch.dtype | None = None) -> torch.Tensor:
     """kernel.diag(x) for any x: 1 from Matern/RBF, plus the constant and
-    white-noise levels when active (GPR's alpha is excluded, as in sklearn)."""
-    v = torch.ones_like(params.log_noise)
+    white-noise levels when active (GPR's alpha is excluded, as in sklearn).
+    ``dtype``: the precision of the unit term, and so of the result when it
+    is wider than the parameters' (the parameters' own when None)."""
+    v = torch.ones_like(params.log_noise, dtype=dtype)
     if cfg.with_constant:
         v = v + torch.exp(params.log_constant)
     if cfg.with_noise:

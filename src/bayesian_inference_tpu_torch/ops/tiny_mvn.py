@@ -48,7 +48,7 @@ def _mvn_terms_cuda(dY: torch.Tensor, C: torch.Tensor) -> tuple[torch.Tensor, to
     half_logdet = torch.empty_like(quad)
     KERNEL.launch(
         "tiny_mvn_f32", dY.data_ptr(), C.data_ptr(), quad.data_ptr(), half_logdet.data_ptr(),
-        math.prod(lead), nb, stream_handle(dY.device),
+        math.prod(lead), nb, stream_handle(dY.device), device=dY.device,
     )
     return quad, half_logdet
 

@@ -298,3 +298,191 @@ def test_observable_dict_and_matrix_round_trip_match_jax(fixture_observables, fi
                                   jobs.observable_matrix_from_dict(diag, "cov"))
     with pytest.raises(ValueError, match="bin count mismatch"):
         tobs.observable_dict_from_matrix(Y[:, :-1], observables, **kw)
+
+
+# The stretch move's options, one at a time and all together.
+OPTION_CASES = {
+    "a": {"a": 1.5},
+    "fixed_split": {"randomize_split": False},
+    "thin": {"thin": 4},
+    "no_chain": {"store_chain": False},
+    "all": {"a": 1.5, "randomize_split": False, "thin": 4, "store_chain": False},
+}
+
+
+def _jax_draws(key, n, W, randomize_split):
+    rands, _ = jstretch._pregen_rands(key, n, W, jnp.float64, randomize_split)
+    return {k: np.asarray(v) for k, v in rands.items()}
+
+
+@pytest.mark.parametrize("case", sorted(OPTION_CASES))
+def test_run_ensemble_and_run_chunk_options_match_jax(case):
+    """run_ensemble and run_chunk with ``a``, ``randomize_split``, ``thin``
+    and ``store_chain`` against JAX's, the draws of JAX's default
+    (pregenerated) stream injected: chain, log-probs, acceptance trace and
+    fraction and the final state to 1e-10; without a chain the result holds
+    none; a ``thin`` that does not divide the run is refused."""
+    options = OPTION_CASES[case]
+    mu, prec, x0 = _target(seed=13)
+    jfn, tfn = _gaussian_logp(mu, prec)
+    n, W = 24, x0.shape[0]
+    key = jax.random.key(14)
+    ref = jstretch.run_ensemble(key, jfn, jnp.asarray(x0), n, **options)
+    rands = {k: torch.tensor(v) for k, v in _jax_draws(key, n, W, options.get("randomize_split", True)).items()}
+    out = tstretch.run_ensemble(tfn, t64(x0), n, rands=rands, **options)
+    assert sorted(out) == sorted(k for k in ref if k != "key")
+    assert ("chain" in out) == options.get("store_chain", True)
+    assert out["acceptance_trace"].shape == (n // options.get("thin", 1),)
+    for name in sorted(out):
+        np.testing.assert_allclose(to_np(out[name]), np.asarray(ref[name]), rtol=1e-10, err_msg=name)
+
+    state, ys = tstretch.run_chunk(tstretch.init_state(tfn, t64(x0)), tfn, n, rands=rands, **options)
+    jstate, jys = jstretch.run_chunk(jstretch.init_state(key, jfn, jnp.asarray(x0)), jfn, n, **options)
+    for ours, theirs in zip(state, jstate[:3]):
+        np.testing.assert_allclose(to_np(ours), np.asarray(theirs), rtol=1e-10)
+    if options.get("store_chain", True):
+        for ours, theirs in zip(ys, jys):
+            np.testing.assert_allclose(to_np(ours), np.asarray(theirs), rtol=1e-10)
+    else:
+        np.testing.assert_allclose(to_np(ys), np.asarray(jys), rtol=1e-10)
+    with pytest.raises(ValueError, match="thin 5 must divide"):
+        tstretch.run_chunk(state, tfn, n, rands=rands, thin=5)
+
+
+@pytest.mark.parametrize("case", sorted(OPTION_CASES))
+def test_run_chunk_batched_options_match_jax(case):
+    """run_chunk_batched over three points (each its own target mean and its
+    own key) with the same option cases against JAX's vmapped chunk under its
+    injected draws: final positions, log-probs and acceptance counts, and
+    the chain and log-probs where stored, to 1e-10; the port's acceptance
+    trace sums to the counts."""
+    options = OPTION_CASES[case]
+    mu, prec, x0 = _target(seed=15)
+    P, (W, d), n = 3, x0.shape, 16
+    rng = np.random.default_rng(16)
+    mus = mu + rng.normal(size=(P, d))
+    x0s = x0 + rng.normal(size=(P, W, d))
+
+    def jfn(mu_p, x):
+        r = x - mu_p
+        return -0.5 * jnp.einsum("wi,ij,wj->w", r, jnp.asarray(prec), r)
+
+    def tfn(x):  # (P, w, d) -> (P, w)
+        r = x - t64(mus)[:, None, :]
+        return -0.5 * torch.einsum("pwi,ij,pwj->pw", r, t64(prec), r)
+
+    keys = jax.vmap(jax.random.key)(jnp.arange(20, 20 + P))
+    jstates = jstretch.init_state_batched(keys, jfn, jnp.asarray(x0s), jnp.asarray(mus))
+    jfinal, jys = jstretch.run_chunk_batched(jstates, jfn, jnp.asarray(mus), n, **options)
+    per_point = [_jax_draws(keys[p], n, W, options.get("randomize_split", True)) for p in range(P)]
+    rands = {k: torch.tensor(np.stack([r[k] for r in per_point], axis=1)) for k in per_point[0]}
+
+    final, ys = tstretch.run_chunk_batched(tstretch.init_state_batched(tfn, t64(x0s)), tfn, n, rands=rands, **options)
+    for ours, theirs in zip(final, jfinal[:3]):
+        np.testing.assert_allclose(to_np(ours), np.asarray(theirs), rtol=1e-10)
+    if options.get("store_chain", True):
+        chain, log_prob, acc = ys
+        assert chain.shape == (n // options.get("thin", 1), P, W, d)
+        np.testing.assert_allclose(to_np(chain), np.asarray(jys[0]), rtol=1e-10)
+        np.testing.assert_allclose(to_np(log_prob), np.asarray(jys[1]), rtol=1e-10)
+    else:
+        assert jys is None
+        acc = ys
+    assert acc.shape == (n // options.get("thin", 1), P)
+    np.testing.assert_allclose(to_np(acc.sum(dim=0)) * W, to_np(final.n_accepted.sum(dim=-1)), rtol=1e-12)
+
+
+def test_step_options_match_jax():
+    """``step`` with ``a`` under JAX's injected draws (rtol 1e-12), and with
+    ``randomize_split=False`` from a generator: the identity split, so the
+    first half's proposals come from the second half's walkers in order."""
+    mu, prec, x0 = _target(seed=17)
+    jfn, tfn = _gaussian_logp(mu, prec)
+    W = x0.shape[0]
+    key = jax.random.key(18)
+    rands = {k: torch.tensor(v[0]) for k, v in _jax_draws(key, 1, W, False).items()}
+    jstate = jstretch.init_state(key, jfn, jnp.asarray(x0))
+    jnew = jstretch._step_with_rands(jstate, {k: jnp.asarray(v.numpy()) for k, v in rands.items()}, jfn, a=1.3)
+    state = tstretch.init_state(tfn, t64(x0))
+    new = tstretch.step(state, tfn, rands=rands, a=1.3)
+    np.testing.assert_allclose(to_np(new.coords), np.asarray(jnew.coords), rtol=1e-12)
+    np.testing.assert_array_equal(to_np(new.n_accepted), np.asarray(jnew.n_accepted))
+    drawn = tstretch.pregen_rands(3, W, torch.Generator().manual_seed(0), torch.float64, randomize_split=False)
+    assert torch.equal(drawn["perm"], torch.arange(W).expand(3, W)) and torch.equal(drawn["inv"], drawn["perm"])
+    fixed = tstretch.step(state, tfn, generator=torch.Generator().manual_seed(0), randomize_split=False)
+    np.testing.assert_allclose(to_np(fixed.log_prob), to_np(tfn(fixed.coords)), rtol=1e-12)
+
+
+def test_pca_state_methods_match_jax():
+    """PCAState.n_components, scale_features, transform, inverse_transform,
+    reconstruction and the host-dict round trip against the JAX package's on
+    the same fit (rtol 1e-12), with numpy leaves and with tensor leaves."""
+    from bayesian_inference_tpu.models import pca as jpca
+    from bayesian_inference_tpu_torch.models import pca as tpca
+
+    rng = np.random.default_rng(19)
+    Y = rng.normal(size=(30, 7)) @ rng.normal(size=(7, 7)) + rng.normal(size=7)
+    jstate, jscores = jpca.fit_pca(Y)
+    state, scores = tpca.fit_pca(Y)
+    assert state.n_components == jstate.n_components == 7
+    np.testing.assert_allclose(scores, np.asarray(jscores), rtol=1e-12)
+    on_tensors = tpca.PCAState.from_host_dict(state.to_host_dict(), device="cpu")
+    assert on_tensors.components.dtype == torch.float64 and on_tensors.n_components == 7
+    back = tpca.PCAState.from_host_dict(on_tensors.to_host_dict())
+    for name, value in state.to_host_dict().items():
+        np.testing.assert_array_equal(getattr(back, name), value)
+    def host(v):
+        return to_np(v) if isinstance(v, torch.Tensor) else v
+
+    for s, arg in ((state, Y), (on_tensors, t64(Y))):
+        np.testing.assert_allclose(host(s.scale_features(arg)), np.asarray(jstate.scale_features(Y)), rtol=1e-12)
+        np.testing.assert_allclose(host(s.transform(arg)), np.asarray(jstate.transform(Y)), rtol=1e-10, atol=1e-12)
+        Z = s.transform(arg, n_pc=3)
+        np.testing.assert_allclose(host(Z), np.asarray(jstate.transform(Y, n_pc=3)), rtol=1e-10, atol=1e-12)
+        np.testing.assert_allclose(host(s.inverse_transform(Z)),
+                                   np.asarray(jstate.inverse_transform(jstate.transform(Y, n_pc=3))), rtol=1e-10)
+        np.testing.assert_allclose(host(s.reconstruction(arg, 3)), np.asarray(jstate.reconstruction(Y, 3)), rtol=1e-10)
+        np.testing.assert_allclose(host(s.reconstruction(arg, 7)), Y, rtol=1e-9, atol=1e-10)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tpca.PCAState.from_host_dict(state.to_host_dict(), device="cuda")
+
+
+def test_kernel_params_create_and_prior_variance_dtype_match_jax():
+    """KernelParams.create takes natural-scale values to JAX's log-space
+    parameters (rtol 1e-15), defaults to the card and raises without one;
+    prior_variance(dtype=) widens the unit term as JAX's does."""
+    from bayesian_inference_tpu.ops import gram as jgram
+
+    ls = np.array([0.5, 2.0, 3.5])
+    ours = tgram.KernelParams.create(ls, noise=0.25, constant=1.7, device="cpu")
+    ref = jgram.KernelParams.create(ls, noise=0.25, constant=1.7)
+    for name in ("log_length_scale", "log_noise", "log_constant"):
+        assert getattr(ours, name).dtype == torch.float64
+        np.testing.assert_allclose(to_np(getattr(ours, name)), np.asarray(getattr(ref, name)), rtol=1e-15)
+    defaults = tgram.KernelParams.create(ls, device="cpu", dtype=torch.float32)
+    assert defaults.log_noise.dtype == torch.float32 and float(defaults.log_noise) == float(defaults.log_constant) == 0.0
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tgram.KernelParams.create(ls)
+    cfg, jcfg = tgram.KernelConfig(1.5, True, True), jgram.KernelConfig(nu=1.5, with_noise=True, with_constant=True)
+    np.testing.assert_allclose(float(tgram.prior_variance(cfg, ours)), float(jgram.prior_variance(jcfg, ref)), rtol=1e-15)
+    assert tgram.prior_variance(cfg, defaults).dtype == torch.float32
+    wide = tgram.prior_variance(cfg, defaults, dtype=torch.float64)
+    assert wide.dtype == torch.float64
+    np.testing.assert_allclose(float(wide), float(jgram.prior_variance(jcfg, jgram.KernelParams.create(ls), jnp.float64)),
+                               rtol=1e-7)
+
+
+def test_warm_fft_plans_runs_and_changes_no_result():
+    """warm_fft_plans at a capped and an uncapped length runs, and the
+    estimates before and after it are the same arrays."""
+    from bayesian_inference_tpu_torch.mcmc import stats as tstats
+
+    rng = np.random.default_rng(21)
+    chain = np.cumsum(rng.normal(size=(400, 6, 2)), axis=0) * 0.05 + rng.normal(size=(400, 6, 2))
+    before = tstats.integrated_time(chain, quiet=True)
+    power = tstats.device_mean_power(torch.tensor(chain))
+    assert tstats.warm_fft_plans(400) is None and tstats.warm_fft_plans(2 * tstats._ACF_MAX_LAG) is None
+    np.testing.assert_array_equal(tstats.integrated_time(chain, quiet=True), before)
+    np.testing.assert_array_equal(tstats.device_mean_power(torch.tensor(chain))[0], power[0])

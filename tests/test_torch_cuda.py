@@ -591,3 +591,143 @@ def test_device_trace_records_the_card_kernels(device, tmp_path):
     assert any(e.get("name") == "biq_card_region" for e in events)
     kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
     assert any("diag_chol_inv_kernel" in name for name in kernels), kernels[:20]
+
+
+CARD_OPTION_CASES = {
+    "a": {"a": 1.5},
+    "fixed_split": {"randomize_split": False},
+    "thin": {"thin": 4},
+    "no_chain": {"store_chain": False},
+    "all": {"a": 1.5, "randomize_split": False, "thin": 4, "store_chain": False},
+}
+
+
+@pytest.mark.parametrize("n_points", [None, 3], ids=["single", "batched"])
+@pytest.mark.parametrize("case", sorted(CARD_OPTION_CASES))
+def test_sampler_program_options_equal_the_eager_loop_on_the_card(card_analysis, case, n_points):
+    """On the card a captured program built with ``a``, ``randomize_split``,
+    ``thin`` or ``store_chain`` (and all four) equals the eager loop with the
+    same options bit for bit, over a chunk longer than its buffers; one replay
+    is ``thin`` sub-steps, and K1 still launches twice per sub-step."""
+    from bayesian_inference_tpu_torch.io import observables as obs_io
+    from bayesian_inference_tpu_torch.mcmc import likelihood as lik
+    from bayesian_inference_tpu_torch.mcmc import stretch
+    from bayesian_inference_tpu_torch.mcmc.programs import SamplerPrograms
+    from bayesian_inference_tpu_torch.models.emulator import fit_emulators
+
+    options = CARD_OPTION_CASES[case]
+    store, thin = options.get("store_chain", True), options.get("thin", 1)
+    emu, mcmc, observables = card_analysis
+    device = torch.device("cuda", 0)
+    artifacts = fit_emulators(emu, n_opt_iters=20, device=device, observables=observables, write=False)
+    box = mcmc.parameterization_spec()
+    kw = dict(observable_filter=emu.observable_filter, observables=observables)
+    exp = obs_io.data_array_from_h5(mcmc.output_dir, mcmc.observables_filename, **kw)
+    like = lik.build_likelihood(emu, artifacts, exp, box["min"], box["max"], device=device, observables=observables)
+    W, ndim, n, dt = 20, len(box["min"]), 28, like.theta_min.dtype
+    lead = ()
+    if n_points:
+        ys = np.stack([obs_io.data_array_from_h5(mcmc.output_dir, mcmc.observables_filename, pseudodata_index=i,
+                                                 rng=np.random.default_rng(i), **kw)["y"] for i in range(n_points)])
+        d0 = tuple(torch.tensor(d, dtype=dt, device=device) for d in lik.pad_residual_offsets(emu, artifacts, ys, observables))
+        like, lead = like.with_d0(d0), (n_points,)
+    gens = [torch.Generator(device=device).manual_seed(7 + i) for i in range(n_points or 1)]
+    x0 = like.theta_min + (like.theta_max - like.theta_min) * torch.rand((*lead, W, ndim), generator=gens[0],
+                                                                         dtype=dt, device=device)
+    split = options.get("randomize_split", True)
+    if n_points:
+        rands, eager_chunk = stretch.pregen_rands_batched(n, W, gens, dt, split), stretch.run_chunk_batched
+    else:
+        rands, eager_chunk = stretch.pregen_rands(n, W, gens[0], dt, split), stretch.run_chunk
+    fn = like.log_posterior
+    state0 = stretch.init_state(fn, x0)
+    ref_state, ref = eager_chunk(state0, fn, n, rands=rands, **options)
+
+    programs = SamplerPrograms(like, W, ndim, [13], n_points=n_points, **options)
+    programs.compile()
+    assert programs.captured and programs.capacity == (12 if thin == 4 else 13)
+    before = fused_mvn.KERNEL.launches
+    state, out = programs.chunk(programs.init(like, x0), like, n, rands=rands)
+    torch.cuda.synchronize()
+    assert fused_mvn.KERNEL.launches == before + 1 + 2 * n
+    if not store:
+        assert isinstance(out, torch.Tensor)
+        out, ref = (out,), (ref,)
+    assert out[-1].shape[0] == n // thin
+    for a, b in zip((*state, *out), (*ref_state, *ref)):
+        assert a.shape == b.shape and torch.equal(a, b)
+
+
+def test_one_device_mesh_equals_no_mesh_on_the_card(card_analysis):
+    """On the card ``run_mcmc(mesh=get_mesh())`` (one device) runs through
+    the captured graph and equals ``mesh=None`` bit for bit; a mesh that names
+    the card three times still runs one captured graph, with three K1
+    launches per evaluation; the closure batch over it pads 2 points to 3 and
+    returns the 2."""
+    from bayesian_inference_tpu_torch.mcmc import runner
+    from bayesian_inference_tpu_torch.models.emulator import fit_emulators
+    from bayesian_inference_tpu_torch.parallel.mesh import get_mesh
+
+    emu, mcmc, observables = card_analysis
+    device = torch.device("cuda", 0)
+    artifacts = fit_emulators(emu, n_opt_iters=20, device=device, observables=observables, write=False)
+    kw = dict(seed=3, device=device, emulation_results=artifacts, observables=observables, write=False)
+    before = fused_mvn.KERNEL.launches
+    plain = runner.run_mcmc(mcmc, **kw)
+    per_run = fused_mvn.KERNEL.launches - before
+    mesh = get_mesh()
+    assert mesh.size == torch.cuda.device_count() and mesh.devices[0] == device
+    one = runner.run_mcmc(mcmc, mesh=get_mesh(1), **kw)
+    assert one["programs_captured"] and plain["programs_captured"]
+    for key in ("chain", "log_prob", "acceptance_fraction", "split_rhat"):
+        np.testing.assert_array_equal(one[key], plain[key], err_msg=key)
+
+    thrice = get_mesh(devices=["cuda:0"] * 3)
+    before = fused_mvn.KERNEL.launches
+    out = runner.run_mcmc(mcmc, mesh=thrice, **kw)
+    assert out["programs_captured"] and fused_mvn.KERNEL.launches - before == 3 * per_run
+    assert np.isfinite(out["log_prob"]).all() and 0.0 < out["acceptance_fraction"].mean() < 1.0
+    batch = runner.run_closure_batch(mcmc, [0, 1], mesh=thrice, **kw)
+    assert sorted(batch) == [0, 1] and batch[0]["chain"].shape == plain["chain"].shape
+    assert all(np.isfinite(batch[i]["log_prob"]).all() for i in (0, 1))
+
+
+def test_mesh_fit_matches_the_unsharded_fit_on_the_card(device):
+    """On the card ``fit_gps(mesh=)`` over a mesh naming the card four times
+    runs every share through its own captured program and K3, and lands within
+    0.1 nat of the unsharded fit's LMLs."""
+    from bayesian_inference_tpu_torch.models import gp_fit
+    from bayesian_inference_tpu_torch.parallel.mesh import get_mesh
+
+    spec, X, Y, rand_logs = _fit_inputs(2)
+    gp_fit.clear_fit_programs()
+    single = gp_fit.fit_gps(spec, X, Y, rand_logs=rand_logs)
+    before = bc.KERNEL.launches
+    meshed = gp_fit.fit_gps(spec, X, Y, rand_logs=rand_logs, mesh=get_mesh(devices=["cuda:0"] * 4))
+    torch.cuda.synchronize()
+    assert bc.KERNEL.launches > before and all(p.captured for p in gp_fit._PROGRAMS.values())
+    assert float((meshed.lml - single.lml).abs().max()) <= 0.1
+    gp_fit.clear_fit_programs()
+
+
+def test_compile_async_builds_the_captured_program_on_the_card(card_analysis):
+    """compile_async on the card: the capture runs on its own thread while
+    this one does host work only; ok() waits for it, the program is a
+    captured graph and gives the synchronously built program's chunk."""
+    from bayesian_inference_tpu_torch.mcmc.programs import SamplerPrograms, likelihood_shape_spec
+
+    emu, mcmc, observables = card_analysis
+    device = torch.device("cuda", 0)
+    box = mcmc.parameterization_spec()
+    spec = likelihood_shape_spec(emu, box["min"], box["max"], device=device, observables=observables)
+    W, ndim = 20, len(box["min"])
+    x0 = spec.theta_min + (spec.theta_max - spec.theta_min) * torch.rand(
+        (W, ndim), generator=torch.Generator(device=device).manual_seed(1), device=device)
+    background = SamplerPrograms(spec, W, ndim, [16]).compile_async()
+    assert background.ok() and background.captured
+    sync = SamplerPrograms(spec, W, ndim, [16])
+    sync.compile()
+    outs = [p.chunk(p.init(spec, x0), spec, 16, generator=torch.Generator(device=device).manual_seed(2))
+            for p in (background, sync)]
+    for a, b in zip((*outs[0][0], *outs[0][1]), (*outs[1][0], *outs[1][1])):
+        assert torch.equal(a, b)

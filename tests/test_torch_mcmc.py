@@ -393,3 +393,41 @@ def test_port_never_imports_jax():
     src = Path(__file__).resolve().parents[1] / "src"
     proc = subprocess.run([sys.executable, "-c", code], cwd=src, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("runner_name", ["run_mcmc", "run_closure_batch"])
+def test_runner_dtype_matches_the_jax_dtype(fixture_run, runner_name):
+    """``dtype=torch.float32`` on both runners (the CPU default is float64):
+    the chain and log-probs come back in float32, the checkpoint header would
+    pin it, and the log-probs the run carries equal the JAX package's
+    likelihood built with ``dtype=float32`` evaluated at the run's last
+    positions (rtol 2e-4 and atol 2e-3 on values of a few hundred: float32
+    through the GP predict and the block Cholesky); prewarm_sampler_programs
+    takes the same ``dtype`` and its handle serves the run."""
+    from bayesian_inference_tpu_torch.mcmc import programs as tprograms
+
+    r = fixture_run
+    kw = dict(device="cpu", emulation_results=r.artifacts, observables=r.observables, write=False, seed=4,
+              dtype=torch.float32)
+    jlike = jlik.build_likelihood(r.jemu, r.artifacts, r.exp, theta_min=r.lo, theta_max=r.hi,
+                                  dtype=jnp.dtype("float32"))
+    assert jlike.theta_min.dtype == jnp.float32
+    if runner_name == "run_mcmc":
+        programs = tprograms.prewarm_sampler_programs(r.tmcmc, device="cpu", observables=r.observables,
+                                                      dtype=torch.float32)
+        assert programs._like.theta_min.dtype == torch.float32
+        out = trunner.run_mcmc(r.tmcmc, programs=programs, **kw)
+        assert out["chain"].dtype == out["log_prob"].dtype == np.float32
+        ref = np.asarray(jlike.log_posterior(jnp.asarray(out["chain"][-1])))
+        np.testing.assert_allclose(out["log_prob"][-1], ref, rtol=2e-4, atol=2e-3)
+        wide = trunner.run_mcmc(r.tmcmc, **{**kw, "dtype": None})
+        assert wide["chain"].dtype == np.float64
+    else:
+        out = trunner.run_closure_batch(r.tmcmc, [0, 1], **kw)
+        ys = np.stack([out[i]["experimental_pseudodata"]["y"] for i in (0, 1)])
+        jd0 = jlik.pad_residual_offsets(r.jemu, r.artifacts, ys)
+        for p, i in enumerate((0, 1)):
+            assert out[i]["chain"].dtype == out[i]["log_prob"].dtype == np.float32
+            d0 = tuple(jnp.asarray(d[p], jnp.float32) for d in jd0)
+            ref = np.asarray(jlike.log_posterior_with_d0(d0, jnp.asarray(out[i]["chain"][-1])))
+            np.testing.assert_allclose(out[i]["log_prob"][-1], ref, rtol=2e-4, atol=2e-3)

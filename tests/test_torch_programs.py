@@ -411,3 +411,122 @@ def test_chain_transfer_is_named_in_one_warning(fixture_run, caplog):
         plain = trunner.run_mcmc(r.tmcmc, **_run_kw(r, seed=3))
     assert "chain_transfer" not in caplog.text
     np.testing.assert_array_equal(out["chain"], plain["chain"])
+
+
+# The stretch move's options, one at a time and all together.
+OPTION_CASES = {
+    "a": {"a": 1.5},
+    "fixed_split": {"randomize_split": False},
+    "thin": {"thin": 4},
+    "no_chain": {"store_chain": False},
+    "all": {"a": 1.5, "randomize_split": False, "thin": 4, "store_chain": False},
+}
+
+
+def _assert_same_result(ours, ref, store_chain):
+    (state, out), (ref_state, ref_out) = ours, ref
+    if not store_chain:
+        assert isinstance(out, torch.Tensor) and isinstance(ref_out, torch.Tensor)
+        out, ref_out = (out,), (ref_out,)
+    assert len(out) == len(ref_out) == (3 if store_chain else 1)
+    for a, b in zip((*state, *out), (*ref_state, *ref_out)):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["single", "batched"])
+@pytest.mark.parametrize("case", sorted(OPTION_CASES))
+def test_program_with_options_equals_the_eager_loop(fixture_run, case, batched):
+    """A program built with ``a``, ``randomize_split``, ``thin`` or
+    ``store_chain`` (and all four) gives the eager loop's final state and
+    outputs bit for bit, for one ensemble and for a batch of points, from a
+    generator; so does a second chunk longer than the program's buffers
+    (capacity 12, rounded to a multiple of ``thin``; 28 steps run in pieces).
+    Without ``store_chain`` the program holds no chain buffer."""
+    r = fixture_run
+    options = OPTION_CASES[case]
+    store = options.get("store_chain", True)
+    like = r.tlike["block"]
+    lead = ()
+    if batched:
+        ys = np.stack([tobs.data_array_from_h5("", "", pseudodata_index=i, observable_filter=r.temu.observable_filter,
+                                               rng=np.random.default_rng(i), observables=r.observables)["y"]
+                       for i in (0, 1)])
+        like = like.with_d0(tuple(torch.tensor(d) for d in tlik.pad_residual_offsets(r.temu, r.artifacts, ys,
+                                                                                      r.observables)))
+        lead = (2,)
+    fn = like.log_posterior
+    programs = tprograms.SamplerPrograms(_spec(r, "block"), W, r.lo.size, chunk_sizes=[13],
+                                         n_points=2 if batched else None, **options)
+    programs.compile()
+    assert programs.capacity == (12 if options.get("thin", 1) == 4 else 13)
+    assert len(programs._outputs) == (3 if store else 1)
+    assert programs._outputs[-1].shape[0] == programs.capacity // options.get("thin", 1)
+
+    def gens(seed):
+        if batched:
+            return [torch.Generator().manual_seed(seed + p) for p in range(2)]
+        return torch.Generator().manual_seed(seed)
+
+    eager = tstretch.run_chunk_batched if batched else tstretch.run_chunk
+    gen_kw = "generators" if batched else "generator"
+    x0 = _start(like, lead=lead)
+    ref = eager(tstretch.init_state(fn, x0), fn, 12, **{gen_kw: gens(1)}, **options)
+    ours = programs.chunk(programs.init(like, x0), like, 12, generator=gens(1))
+    _assert_same_result(ours, ref, store)
+    ref2 = eager(ref[0], fn, 28, **{gen_kw: gens(5)}, **options)
+    ours2 = programs.chunk(ours[0], like, 28, generator=gens(5))
+    _assert_same_result(ours2, ref2, store)
+    acc = ours2[1][2] if store else ours2[1]
+    assert acc.shape == (28 // options.get("thin", 1), *lead)
+    assert 0 < int(ours2[0].n_accepted.sum()) < 40 * W * (2 if batched else 1)
+    if options.get("thin", 1) > 1:
+        with pytest.raises(ValueError, match="thin 4 must divide"):
+            programs.chunk(ours2[0], like, 10, generator=gens(6))
+
+
+@pytest.mark.parametrize("other", ["a", "randomize_split", "store_chain", "thin", "mesh"])
+def test_serves_refuses_a_handle_of_other_options(fixture_run, caplog, other):
+    """serves() compares the move's options and the mesh: a handle built with
+    another ``a``, split, ``store_chain``, ``thin`` or mesh does not serve a
+    default run, and run_mcmc drops it with its warning and gives the chain
+    of an unwarmed run."""
+    from bayesian_inference_tpu_torch.parallel.mesh import get_mesh
+
+    r = fixture_run
+    like = r.tlike["block"]
+    built = {"a": {"a": 1.5}, "randomize_split": {"randomize_split": False}, "store_chain": {"store_chain": False},
+             "thin": {"thin": 2}, "mesh": {"mesh": get_mesh(devices=["cpu"])}}[other]
+    programs = tprograms.SamplerPrograms(_spec(r, "block"), r.tmcmc.n_walkers, r.lo.size, chunk_sizes=[20, 100],
+                                         **built)
+    programs.compile()
+    assert programs.serves(like, r.tmcmc.n_walkers, r.lo.size, **built)
+    assert not programs.serves(like, r.tmcmc.n_walkers, r.lo.size)
+    assert programs.options == (built.get("a", 2.0), built.get("randomize_split", True),
+                                built.get("store_chain", True), built.get("thin", 1))
+    kw = _run_kw(r, seed=2, mode="block")
+    with caplog.at_level("WARNING", logger=trunner.__name__):
+        out = trunner.run_mcmc(r.tmcmc, programs=programs, **kw)
+    assert caplog.text.count("prewarmed sampler programs do not match") == 1
+    np.testing.assert_array_equal(out["chain"], trunner.run_mcmc(r.tmcmc, **kw)["chain"])
+
+
+def test_compile_async_returns_the_handle_and_its_methods_wait(fixture_run):
+    """compile_async starts the build and returns the handle itself, as the
+    JAX package's does; ok() and chunk wait for it, and the result is the
+    synchronously built program's. A build that fails raises from ok()."""
+    r = fixture_run
+    like = r.tlike["block"]
+    programs = tprograms.SamplerPrograms(_spec(r, "block"), W, r.lo.size, chunk_sizes=[8])
+    assert programs.compile_async() is programs
+    assert programs.ok() and programs.compile_seconds is not None
+    sync = tprograms.SamplerPrograms(_spec(r, "block"), W, r.lo.size, chunk_sizes=[8])
+    sync.compile()
+    x0 = _start(like)
+    _assert_same_chunk(programs.chunk(programs.init(like, x0), like, 8, generator=torch.Generator().manual_seed(1)),
+                       sync.chunk(sync.init(like, x0), like, 8, generator=torch.Generator().manual_seed(1)))
+
+    broken = tprograms.SamplerPrograms(_spec(r, "block"), W, r.lo.size, chunk_sizes=[8])
+    broken.compile = lambda: (_ for _ in ()).throw(ValueError("no build"))
+    broken.compile_async()
+    with pytest.raises(RuntimeError, match="the build failed"):
+        broken.ok()
