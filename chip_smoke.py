@@ -51,6 +51,11 @@ launch counts set to 0 just before it and read just after:
 - the main path at its full length, once: ``fit_emulators`` -> ``run_mcmc``
   with 100 walkers and 1,000 + 50,000 steps, with seconds per phase, steps
   per second and peak bytes;
+- posterior parity (``scripts/parity_check_torch.py``), block and lowrank
+  mode: ``run_mcmc`` on the slice's emulators (f32, the kernels, the port's
+  own generator) against an independent numpy stretch move on the float64
+  likelihood without the kernels, KS and quantile gates on the tau-thinned
+  marginals;
 - the steer entry point, ``SteerAnalysis(config=..., write=False)``: table
   ingest -> preprocessing -> fit -> 5-fold CV of every group -> MCMC
   checkpointed every 500 steps -> closure batch; then an MCMC run and a
@@ -61,11 +66,14 @@ Each kernel's line gives its device time beside its bound (the larger of
 its FP32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s, the H100
 SXM's published peaks) and the share of the bound it reaches: K3 at the
 fit's three batch sizes, K4 at the lowrank batch sizes and at the widest
-capacitance matrix it takes (64 PCs). The fit checks K3's launches by batch
-size, counted through the fit programs' replays; the steer prints them. In block mode every
-likelihood evaluation is one launch of K1 for all width buckets; each path
-checks that its K1 launches equal its block-mode evaluations, counted as its
-eager evaluations plus two per step a program replayed.
+capacitance matrix it takes (64 PCs), beside one library call of the same
+function (``MultivariateNormal.log_prob``; K1 has none: it assembles
+C = D + U diag(v) U^T inside, and no one call computes that). The fit checks
+K3's launches by batch size, counted through the fit programs' replays; the
+steer prints them. In block mode every likelihood evaluation is one launch
+of K1 for all width buckets; each path checks that its K1 launches equal its
+block-mode evaluations, counted as its eager evaluations plus two per step a
+program replayed.
 
 One line per phase; the line before the last is the card's name and power
 limit as ``nvidia-smi`` reports them, the line before that the kernels' JSON
@@ -83,6 +91,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -142,6 +151,19 @@ MESH_ENTRIES, MESH_CLOSURE_STEPS = 4, 300
 MESH_FIT_SHORT_ITERS = 3
 # The main path at its full length (bench.py's north-star workload).
 FULL_BURN, FULL_STEPS = 1000, 50_000
+# The parity phase (scripts/parity_check_torch.py), block and lowrank mode:
+# ours, run_mcmc at 100 walkers (f32, the kernels), against the numpy stretch
+# move on the float64 likelihood without the kernels. The reference runs
+# PARITY_REF_BURN + up to PARITY_REF_STEPS steps, fewer production steps
+# where its budget in seconds per mode (PARITY_REF_BUDGET_S), at the time of
+# one evaluation measured first, does not hold them; ours runs PARITY_BURN +
+# PARITY_STEPS steps, at least as many. Measured on an H100 (700 W): one
+# float64 evaluation of 50 walkers takes 1.9 ms (block) and 1.5 ms (lowrank)
+# on the card, 4-124 ms on its host; tau is 67-69 (block) and 103-110
+# (lowrank) steps.
+PARITY_BURN, PARITY_STEPS = 1000, 12_000
+PARITY_REF_BURN, PARITY_REF_STEPS = 1000, 6000
+PARITY_REF_BUDGET_S = {"block": 60.0, "lowrank": 35.0}
 # Production with and without chunking is timed in turns: the steer's own
 # (chunked) run, then this many (one chunk, chunked) pairs, then one chunk.
 STEER_TIMING_PAIRS = 3
@@ -189,6 +211,11 @@ LML_TOL_NAT = 0.1
 #   targets would be off by tens of nats.
 MESH_FIT_PATH_TOL_NAT = 5.0
 ACCEPTANCE_RANGE = (0.05, 0.9)
+# - The parity reference's float64 likelihood (library Cholesky) against the
+#   kernels' plain version (the unrolled factorisation) at the same points,
+#   max |delta| / max |lp|: two float64 factorisations of the same matrices.
+#   Measured on an H100: 1.5e-16 (block), 1.1e-15 (lowrank).
+REF_VS_UNROLLED_TOL = 1e-12
 # - ``predict`` on the card (f32 GP predict and covariance) against the same
 #   call on the CPU in float64, from the same artifacts: central values as
 #   max |err| / max |value|, the covariance diagonal per entry relative. The
@@ -675,20 +702,30 @@ def phase_k4(device, reps: int = 50) -> list[dict]:
 
         # the kernel's function as the lowrank likelihood calls it: (quad, half_logdet)
         ms, plain_ms = time_pair(lambda: tiny_mvn.mvn_terms(r, M), lambda: tiny_mvn.mvn_terms_plain(r, M), reps)
+        # One library call computes the same function (Cholesky, quadratic
+        # form and log det of each instance), timed in turns with the kernel.
+        zeros = torch.zeros(n, dtype=r.dtype, device=device)
+
+        def library():
+            return torch.distributions.MultivariateNormal(zeros, covariance_matrix=M, validate_args=False).log_prob(r)
+
+        _, library_ms = time_pair(lambda: tiny_mvn.mvn_terms(r, M), library, reps)
+        library_err = float((library().double() + 0.5 * n * math.log(2 * math.pi) - ll64).abs().div(scale).max())
         # Cholesky + solve; read M's lower triangle and r, write quad and half_logdet
         b = bound(B * (n**3 / 3 + n * n), 4 * B * (n * (n + 1) / 2 + n + 2))
         print(f"K4 block_mvn B={B} capacitance M = G + diag(1/v), k={n} (cond {float(cond.min()):.3g}.."
               f"{float(cond.max()):.3g}), f32: max per-instance err / (|quad|/2 + |half_logdet|) vs float64: "
               f"kernel {rel:.3g}, plain f32 {rel_plain:.3g}, Woodbury combination {wrel:.3g} (tol {K4_TOL}); "
               f"max abs err vs plain f32 {max_abs:.3g}; non-SPD -> NaN in that instance only: {nan_ok}; "
-              f"bit-equal on repeat: {repeat}; kernel {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call; "
+              f"bit-equal on repeat: {repeat}; kernel {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call, library "
+              f"MultivariateNormal.log_prob {library_ms:.4f} ms/call (its err vs float64 {library_err:.3g}); "
               f"{bound_text(ms, b)}", flush=True)
         what = f"K4 at B={B}, k={n}"
         check(ll.shape == (B,) and bool(torch.isfinite(ll).all()), f"{what}: non-finite or misshapen result")
         check(rel <= K4_TOL and wrel <= K4_TOL, f"{what}: differs from float64 by {max(rel, wrel):.3g} > {K4_TOL}")
         check(nan_ok, "K4: a non-SPD instance must yield NaN without touching its neighbours")
         check(repeat, "K4: repeated launches are not bit-equal")
-        results.append({"max_abs_err": max_abs, **timed(ms, plain_ms, b, shape=f"B={B}, {n} x {n}")})
+        results.append({"max_abs_err": max_abs, **timed(ms, plain_ms, b, library_ms, shape=f"B={B}, {n} x {n}")})
     return results
 
 
@@ -1833,6 +1870,55 @@ def phase_full_length(device, kernels, data: dict) -> dict:
     return launches
 
 
+def parity_module():
+    """``scripts/parity_check_torch.py``, imported from this checkout."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("parity_check_torch", REPO / "scripts" / "parity_check_torch.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_parity(device, kernels, s: dict, data: dict) -> dict:
+    """Posterior parity on the slice's fitted emulators, in block and lowrank
+    mode: ``run_mcmc`` (f32, the kernels, the port's own generator) against
+    the independent numpy stretch move on the float64 likelihood without the
+    kernels (the library Cholesky), on the card or the host, whichever
+    evaluates 50 walkers faster. One ``parity`` line per mode with the
+    report and its gates; a failed gate fails the script, and so does a
+    reference that strays from the kernels' own plain version by more than
+    REF_VS_UNROLLED_TOL."""
+    parity = parity_module()
+    inputs = {"config": production_config(WORK_DIR, data["table_dir"], N_WALKERS, 0, 0, N_RESTARTS),
+              "analysis_name": ANALYSIS, "parameterization": PARAMETERIZATION, "emu": s["emu"],
+              "observables": s["observables"]}
+    t_phase = time.perf_counter()
+    total = {name: 0 for name in kernels}
+    for mode in ("block", "lowrank"):
+        reset(kernels)
+        with count_evaluations() as evals:
+            t = time.perf_counter()
+            report = parity.run_parity(inputs, s["artifacts"], mode=mode, device=device, seed=0, n_walkers=N_WALKERS,
+                                       n_burn=PARITY_BURN, n_steps=PARITY_STEPS, ref_burn=PARITY_REF_BURN,
+                                       ref_steps=PARITY_REF_STEPS, ref_budget_s=PARITY_REF_BUDGET_S[mode])
+            seconds = time.perf_counter() - t
+        launches = counts(kernels)
+        passed, reasons = parity.parity_gates(report)
+        print(f"parity {mode}: " + json.dumps({**report, "gates_passed": passed, "gate_failures": reasons,
+                                              "seconds": seconds, "launches": launches}), flush=True)
+        kernel = "fused_block_mvn" if mode == "block" else "block_mvn"
+        check(launches[kernel] == evals[mode] > 0 and sum(launches.values()) == launches[kernel],
+              f"parity {mode}: launches {launches} for {evals} likelihood evaluations")
+        check(passed, f"parity {mode}: " + "; ".join(reasons))
+        check(report["ref_vs_unrolled_rel"] <= REF_VS_UNROLLED_TOL,
+              f"parity {mode}: the reference's likelihood strays from the plain version by "
+              f"{report['ref_vs_unrolled_rel']:.3g}")
+        total = {name: total[name] + launches[name] for name in kernels}
+    print(f"parity phase: {time.perf_counter() - t_phase:.1f} s (card: {nvidia_smi_line()})", flush=True)
+    return total
+
+
 def phase_predict(device, kernels, s: dict, n_posterior: int = 100) -> dict:
     """``predict`` at production width from the slice's fitted artifacts (41
     PCs over 3 groups, F = 1,644), merged over the groups, on the card: at the
@@ -2126,12 +2212,14 @@ def main() -> int:
     path_launches.append(phase_closure_slabs(device, kernels, reuse))
     path_launches.append(phase_mesh(device, kernels, reuse, data))
     path_launches.append(phase_full_length(device, kernels, data))
+    path_launches.append(phase_parity(device, kernels, reuse, data))
     predict_times = phase_predict(device, kernels, reuse)
     path_launches.append(phase_steer(device, kernels))
     phase_steer_refusal(device)
     total = {name: sum(p[name] for p in path_launches) for name in kernels}
-    print(f"kernel launches over the nine path runs (fit->sample, lowrank analysis, lowrank and block closure "
-          f"batches, the move's options, the closure batch in slabs, the mesh, the full-length main path, steer): "
+    print(f"kernel launches over the ten path runs (fit->sample, lowrank analysis, lowrank and block closure "
+          f"batches, the move's options, the closure batch in slabs, the mesh, the full-length main path, "
+          f"posterior parity in both modes, steer): "
           f"{total}; whole script {time.perf_counter() - t_start:.1f} s", flush=True)
     print("sampler options beside the default program: " + json.dumps(option_rates), flush=True)
     print("dense routes and predict (no kernel; dense as in JAX): "

@@ -101,23 +101,25 @@ def build_woodbury(D: torch.Tensor, U: torch.Tensor, d0: torch.Tensor) -> Woodbu
     )
 
 
-def woodbury_loglike(wn: WoodburyNormal, z: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def woodbury_loglike(wn: WoodburyNormal, z: torch.Tensor, v: torch.Tensor, terms=None) -> torch.Tensor:
     """Loglike of PC-space means and variances z, v (..., k).
 
     With per-point pieces (b of shape (P, k)), z and v are (P, Wh, k). The
     capacitance term +1/2 r^T M^-1 r - 1/2 log det M, with r = b + G z and
     M = G + diag(1/v), is one sweep of the tiny-MVN kernel over all walkers
     (+quad/2 - half_logdet of (r, M)); the JAX package needs two calls of its
-    kernel for it (2 loglike(0, M) - loglike(r, M)).
+    kernel for it (2 loglike(0, M) - loglike(r, M)). ``terms``: another
+    function of (r, M) giving (quad, half_logdet) in the kernel's place.
     """
     from bayesian_inference_tpu_torch.ops.tiny_mvn import mvn_terms
 
+    terms = terms or mvn_terms
     b, c0 = wn.b, wn.c0
     if b.dim() == 2:
         b, c0 = b[:, None, :], c0[:, None]
     zG = z @ wn.G
     M = wn.G + torch.diag_embed(1.0 / v)
-    quad_M, half_logdet_M = mvn_terms(b + zG, M)
+    quad_M, half_logdet_M = terms(b + zG, M)
     rest = (
         c0
         + 2.0 * (b * z).sum(-1)
