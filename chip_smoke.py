@@ -56,6 +56,12 @@ launch counts set to 0 just before it and read just after:
   own generator) against an independent numpy stretch move on the float64
   likelihood without the kernels, KS and quantile gates on the tau-thinned
   marginals;
+- the measurement entry points at a cut length: ``bench_torch.py``'s
+  fixture profile (the observables from ``tests/test_data/
+  observables_fixture.npz``; warm-up, then one gated rep of fit and 2 x 100 +
+  2,000 steps, no program built inside it) and ``scripts/
+  bench_closure_torch.py``'s batch over two validation points of 500 steps
+  in chunks of 250, lowrank and block, each point gated;
 - the steer entry point, ``SteerAnalysis(config=..., write=False)``: table
   ingest -> preprocessing -> fit -> 5-fold CV of every group -> MCMC
   checkpointed every 500 steps -> closure batch; then an MCMC run and a
@@ -151,6 +157,12 @@ MESH_ENTRIES, MESH_CLOSURE_STEPS = 4, 300
 MESH_FIT_SHORT_ITERS = 3
 # The main path at its full length (bench.py's north-star workload).
 FULL_BURN, FULL_STEPS = 1000, 50_000
+# The bench phase (bench_torch.py, scripts/bench_closure_torch.py) at a cut
+# length: the fixture profile for one rep of N_BURN + N_STEPS steps, and the
+# closure batch over BENCH_POINTS validation points of BENCH_CLOSURE_STEPS
+# production steps in chunks of BENCH_CLOSURE_CHUNK; production widths
+# otherwise.
+BENCH_POINTS, BENCH_CLOSURE_STEPS, BENCH_CLOSURE_CHUNK = 2, 500, 250
 # The parity phase (scripts/parity_check_torch.py), block and lowrank mode:
 # ours, run_mcmc at 100 walkers (f32, the kernels), against the numpy stretch
 # move on the float64 likelihood without the kernels. The reference runs
@@ -1919,6 +1931,64 @@ def phase_parity(device, kernels, s: dict, data: dict) -> dict:
     return total
 
 
+def bench_modules():
+    """``bench_torch.py`` and ``scripts/bench_closure_torch.py``, imported
+    from this checkout, their output directed under WORK_DIR."""
+    import importlib.util
+
+    import bench_torch
+
+    spec = importlib.util.spec_from_file_location("bench_closure_torch", REPO / "scripts" / "bench_closure_torch.py")
+    closure = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = closure  # its dataclasses look their module up
+    spec.loader.exec_module(closure)
+    bench_torch.WORK_DIR = WORK_DIR / "bench"
+    return bench_torch, closure
+
+
+def phase_bench(device, kernels) -> dict:
+    """The measurement entry points at a cut length, through their own
+    functions and gates: ``bench_torch.py``'s fixture profile (warm-up, then
+    one rep of fit_emulators -> run_mcmc at 100 walkers, 2 x 100 + 2,000
+    steps) and ``scripts/bench_closure_torch.py``'s batch over two
+    validation points of 500 steps, lowrank and block. The scripts gate
+    each run (finite log-probs, acceptance, R-hat, the likelihood's kernel
+    once per evaluation, the float32 likelihood against float64, no program
+    built inside a timed rep); this checks what they return."""
+    bench, closure = bench_modules()
+    s = bench.Settings(profile="fixture", reps=1, walkers=N_WALKERS, burn=N_BURN, steps=N_STEPS,
+                       restarts=N_RESTARTS, opt_iters=N_OPT_ITERS)
+    reset(kernels)
+    t = time.perf_counter()
+    res = bench.run_profile("fixture", s, device)
+    rep = res["rep_details"][0]
+    print(f"bench fixture: {res['n_observables']} observables / {res['n_features']} features / design "
+          f"{res['n_design']}; warm-up {res['warmup_s']:.2f} s; rep phases (s) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in rep["phases"].items())
+          + f"; launches {rep['launches']}; programs built {rep['programs_built']}; peak bytes {rep['peak_bytes']}; "
+          f"acceptance {rep['acceptance']:.4f}; float32 vs float64 likelihood {res['likelihood_check_rel']:.3g}; "
+          f"{res['flops']['steps_per_s']:.1f} production steps/s, mfu {res['flops']['mfu']}", flush=True)
+    check(rep["programs_built"] == {"fit": 0, "sampler": 0}, f"bench fixture: programs built in the rep {rep}")
+    check(rep["launches"]["fused_block_mvn"] == 2 * (N_BURN + N_STEPS) + 3 and rep["launches"]["diag_chol_inv"] > 0
+          and rep["launches"]["block_mvn"] == 0, f"bench fixture: launches {rep['launches']}")
+    for mode in ("lowrank", "block"):
+        c = closure.ClosureSettings(steps=BENCH_CLOSURE_STEPS, walkers=N_WALKERS, points=BENCH_POINTS,
+                                    chunk=BENCH_CLOSURE_CHUNK, mode=mode)
+        line = closure.run_closure(s, c, device)
+        print(f"bench closure {mode}: " + json.dumps(line), flush=True)
+        kernel = "block_mvn" if mode == "lowrank" else "fused_block_mvn"
+        check(line["launches"][kernel] == 2 * (N_BURN + BENCH_CLOSURE_STEPS) + 3 + 6,
+              f"bench closure {mode}: launches {line['launches']}")
+        check(line["programs_built"] == {"fit": 0, "sampler": 1}, f"bench closure {mode}: {line['programs_built']}")
+        check(line["checkpoint"]["appends"] == BENCH_CLOSURE_STEPS // BENCH_CLOSURE_CHUNK + 1,
+              f"bench closure {mode}: checkpoint {line['checkpoint']}")
+    launches = counts(kernels)
+    print(f"bench phase: {time.perf_counter() - t:.1f} s, kernel launches {launches} (card: {nvidia_smi_line()})",
+          flush=True)
+    check(all(n > 0 for n in launches.values()), f"bench phase: a kernel never launched: {launches}")
+    return launches
+
+
 def phase_predict(device, kernels, s: dict, n_posterior: int = 100) -> dict:
     """``predict`` at production width from the slice's fitted artifacts (41
     PCs over 3 groups, F = 1,644), merged over the groups, on the card: at the
@@ -2213,13 +2283,14 @@ def main() -> int:
     path_launches.append(phase_mesh(device, kernels, reuse, data))
     path_launches.append(phase_full_length(device, kernels, data))
     path_launches.append(phase_parity(device, kernels, reuse, data))
+    path_launches.append(phase_bench(device, kernels))
     predict_times = phase_predict(device, kernels, reuse)
     path_launches.append(phase_steer(device, kernels))
     phase_steer_refusal(device)
     total = {name: sum(p[name] for p in path_launches) for name in kernels}
-    print(f"kernel launches over the ten path runs (fit->sample, lowrank analysis, lowrank and block closure "
+    print(f"kernel launches over the eleven path runs (fit->sample, lowrank analysis, lowrank and block closure "
           f"batches, the move's options, the closure batch in slabs, the mesh, the full-length main path, "
-          f"posterior parity in both modes, steer): "
+          f"posterior parity in both modes, the benches, steer): "
           f"{total}; whole script {time.perf_counter() - t_start:.1f} s", flush=True)
     print("sampler options beside the default program: " + json.dumps(option_rates), flush=True)
     print("dense routes and predict (no kernel; dense as in JAX): "

@@ -6,7 +6,7 @@
 It builds the kernels, makes the production tables, runs ``phase_slice`` (the
 fit and the short run whose emulators and chain the later phases reuse) and
 then the named phases (``options``, ``closure_slabs``, ``mesh``,
-``full_length``, ``parity``; ``k4`` needs no slice but runs after it), each as ``chip_smoke.py`` runs it. For looking at one phase
+``full_length``, ``parity``; ``k4`` and ``bench`` need no slice but run after it), each as ``chip_smoke.py`` runs it. For looking at one phase
 without paying for the whole script; ``chip_smoke.py`` stays the check.
 """
 
@@ -42,6 +42,7 @@ def main(names) -> int:
         "full_length": lambda: chip_smoke.phase_full_length(device, kernels, data),
         "parity": lambda: chip_smoke.phase_parity(device, kernels, reuse, data),
         "k4": lambda: chip_smoke.phase_k4(device),
+        "bench": lambda: chip_smoke.phase_bench(device, kernels),
     }
     for name in names:
         phases[name]()

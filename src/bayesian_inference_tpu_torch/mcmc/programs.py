@@ -81,6 +81,10 @@ logger = logging.getLogger(__name__)
 
 WARMUP_STEPS = 3
 
+# Sampler programs built in this process (``compile`` calls; a point-sharded
+# program counts its shares), for ``sampler_program_stats``.
+_built = 0
+
 
 def logp_operand(like: EmulatorLikelihood, x: torch.Tensor) -> torch.Tensor:
     """Operand-style log-posterior: the likelihood is an argument."""
@@ -355,6 +359,7 @@ class SamplerPrograms:
         """On CUDA, warm up and capture the step; on the CPU, and where the
         walker batch is sharded over distinct cards, there is nothing to
         build. A failure raises."""
+        global _built
         t0 = time.perf_counter()
         if self._parts:
             for part in self._parts:
@@ -374,6 +379,8 @@ class SamplerPrograms:
                 with torch.cuda.graph(graph, stream=side):
                     self._step()
             self._graph, self._launches_per_step = graph, record
+        if not self._parts:
+            _built += 1
         self.compile_seconds = time.perf_counter() - t0
         dense = dense_routes(self._parts[0]._like if self._parts else self._like)
         logger.info(
@@ -568,6 +575,12 @@ class SamplerPrograms:
         return final, tuple(self._gather_points(out, dim=1) for out in zip(*(r[1] for r in results)))
 
     _rands_keys = ("perm", "inv", "u_z", "partners", "u_acc")
+
+
+def sampler_program_stats() -> dict[str, int]:
+    """How many sampler programs were built so far (the counterpart of
+    ``gp_fit.fit_program_stats``; a point-sharded program counts its shares)."""
+    return {"built": _built}
 
 
 def chunk_sizes_for_config(config, checkpoint_every: int | None = None) -> list[int]:

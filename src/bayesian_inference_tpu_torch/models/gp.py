@@ -192,6 +192,20 @@ def posterior_from_params(
     return posterior_from_params_matmul(cfg, params, X, y, alpha_jitter)
 
 
+def posteriors_from_params_stacked(
+    cfg: KernelConfig, params: KernelParams, X, Y_cols, alpha_jitter: float
+) -> GPPosterior:
+    """Posteriors of k GPs, one per entry of the stacked ``params`` and row of
+    ``Y_cols`` (k, N), on the shared design ``X`` (N, d): what the JAX
+    package's vmap of ``posterior_from_params`` over the stack gives. ``X``
+    and ``Y_cols`` (tensors or arrays) are taken on the device and in the
+    dtype of ``params``."""
+    leaf = params.log_length_scale
+    X = torch.as_tensor(X, dtype=leaf.dtype, device=leaf.device)
+    Y_cols = torch.as_tensor(Y_cols, dtype=leaf.dtype, device=leaf.device)
+    return posterior_from_params(cfg, params, X, Y_cols, alpha_jitter)
+
+
 def predict(cfg: KernelConfig, post: GPPosterior, theta: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Posterior mean and variance at ``theta`` (B, d) of one GP -> ((B,), (B,)),
     or of a stack of k GPs -> ((k, B), (k, B)): the cross-covariance from

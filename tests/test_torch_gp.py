@@ -166,3 +166,22 @@ def test_fit_gps_matches_jax_on_fixture(fixture_pcs, monkeypatch):
     # the fitted posterior is self-consistent with its hyperparameters
     check = tgp.posterior_from_params_matmul(tspec.cfg, tpost.params, t64(X), t64(Z.T), 1e-10)
     torch.testing.assert_close(check.lml, tpost.lml, rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("nu,with_constant", KERNEL_CONFIGS)
+def test_posteriors_from_params_stacked_match_jax(nu, with_constant):
+    """posteriors_from_params_stacked (the JAX package's vmap of
+    posterior_from_params over stacked params and target rows) on the same
+    float64 inputs, the port's taking the design and targets as numpy
+    arrays: alpha, K^-1, prior variance and LML within 1e-10 relative to
+    each array's largest magnitude (an element of K^-1 near zero carries the
+    rounding of its row, ~1e-16, and no relative error of its own)."""
+    jcfg, tcfg, jp, raw, X, Y = _stack(nu, with_constant, N=40, seed=3)
+    jitter = 1e-6
+    jpost = jgp.posteriors_from_params_stacked(jcfg, jp, jnp.asarray(X), jnp.asarray(Y), jitter)
+    tpost = tgp.posteriors_from_params_stacked(tcfg, tgram.KernelParams(*map(t64, raw)), X, Y, jitter)
+    assert tpost.X.dtype == torch.float64 and tpost.alpha.shape == Y.shape
+    for name in ("alpha", "Kinv", "prior_var", "lml"):
+        ours, ref = to_np(getattr(tpost, name)), np.asarray(getattr(jpost, name))
+        assert ours.shape == ref.shape, name
+        assert np.abs(ours - ref).max() <= 1e-10 * np.abs(ref).max(), name
