@@ -84,7 +84,7 @@ from bayesian_inference_tpu_torch.mcmc.likelihood import build_likelihood  # noq
 from bayesian_inference_tpu_torch.mcmc.runner import run_mcmc  # noqa: E402
 from bayesian_inference_tpu_torch.models import gp_fit  # noqa: E402
 from bayesian_inference_tpu_torch.models.emulator import default_dtype, fit_emulators, resolve_device  # noqa: E402
-from bayesian_inference_tpu_torch.ops import blocked_cholesky, fused_mvn, tiny_mvn  # noqa: E402
+from bayesian_inference_tpu_torch.ops import blocked_cholesky, fused_mvn, gp_predict, stretch_move, tiny_mvn  # noqa: E402
 from bayesian_inference_tpu_torch.pipeline.configs import EmulationConfig, MCMCConfig  # noqa: E402
 from bayesian_inference_tpu_torch.utils import flops as flops_mod  # noqa: E402
 
@@ -120,7 +120,7 @@ LOGP_TOL = 1e-3
 N_CHECK = 64
 
 KERNELS = {"diag_chol_inv": blocked_cholesky.KERNEL, "fused_block_mvn": fused_mvn.KERNEL,
-           "block_mvn": tiny_mvn.KERNEL}
+           "block_mvn": tiny_mvn.KERNEL, "gp_predict": gp_predict.KERNEL, "stretch_move": stretch_move.KERNEL}
 LIKELIHOOD_KERNEL = {"block": "fused_block_mvn", "lowrank": "block_mvn"}
 
 
@@ -396,15 +396,23 @@ def expected_likelihood_launches(n_burn: int, n_steps: int, sampler_builds: int)
     return 2 * (n_burn + n_steps) + 3 + 2 * programs_mod.WARMUP_STEPS * sampler_builds
 
 
-def gate_launches(counts: dict[str, int], mode: str, expected: int, device: torch.device, what: str) -> None:
-    """On the card, the likelihood's kernel once per evaluation and the other
-    one never; the CPU runs the kernels' plain versions and counts nothing."""
+def gate_launches(counts: dict[str, int], mode: str, n_burn: int, n_steps: int, sampler_builds: int,
+                  device: torch.device, what: str) -> None:
+    """On the card, the likelihood's kernel and the GP predict's once per
+    evaluation (the shipped configurations fuse every group into one GP
+    stack), the other likelihood kernel never, and the move's three times
+    per step (the warm-up steps of a program built inline among them); the
+    CPU runs the kernels' plain versions and counts nothing."""
     if device.type != "cuda":
         return
     kernel = LIKELIHOOD_KERNEL[mode]
     other = LIKELIHOOD_KERNEL["lowrank" if mode == "block" else "block"]
-    gate(counts[kernel] == expected and counts[other] == 0,
-         f"{what}: kernel launches {counts}, expected {kernel} {expected} and {other} 0")
+    evaluations = expected_likelihood_launches(n_burn, n_steps, sampler_builds)
+    steps = n_burn + n_steps + programs_mod.WARMUP_STEPS * sampler_builds
+    gate(counts[kernel] == counts["gp_predict"] == evaluations and counts[other] == 0
+         and counts["stretch_move"] == 3 * steps,
+         f"{what}: kernel launches {counts}, expected {kernel} and gp_predict {evaluations}, {other} 0, "
+         f"stretch_move {3 * steps}")
 
 
 def check_likelihood(emu: EmulationConfig, mcmc: MCMCConfig, artifacts: dict, observables: dict,
@@ -526,7 +534,7 @@ def run_profile(name: str, s: Settings, device: torch.device) -> dict:
         what = f"[{name}] rep {rep}"
         af, rhat_max = gate_run(out, what)
         gate(not s.warmup or not any(built.values()), f"{what}: programs built inside the timed rep: {built}")
-        gate_launches(counts, mode, expected_likelihood_launches(s.burn, s.steps, built["sampler"]), device, what)
+        gate_launches(counts, mode, s.burn, s.steps, built["sampler"], device, what)
         phases = {"fit": t_fit, **out["timings"], "total": t_fit + t_mcmc}
         reps.append(phases)
         details.append({"phases": phases, "launches": counts,

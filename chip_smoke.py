@@ -11,6 +11,8 @@ version at the shapes of the paths that run it, then drives those paths at
 production width through the entry points a user calls, each with the kernel
 launch counts set to 0 just before it and read just after:
 
+- the sampler step's two kernels, K5 and K6, against their plain versions at
+  the main path's shapes (``phase_step_kernels``);
 - the sampler programs (``mcmc/programs.SamplerPrograms``, a captured CUDA
   graph of the ensemble step, through which both runners run every chunk)
   against the eager loop (``stretch.run_chunk`` / ``run_chunk_batched``): 200
@@ -74,12 +76,19 @@ SXM's published peaks) and the share of the bound it reaches: K3 at the
 fit's three batch sizes, K4 at the lowrank batch sizes and at the widest
 capacitance matrix it takes (64 PCs), beside one library call of the same
 function (``MultivariateNormal.log_prob``; K1 has none: it assembles
-C = D + U diag(v) U^T inside, and no one call computes that). The fit checks
-K3's launches by batch size, counted through the fit programs' replays; the
-steer prints them. In block mode every likelihood evaluation is one launch
-of K1 for all width buckets; each path checks that its K1 launches equal its
-block-mode evaluations, counted as its eager evaluations plus two per step a
-program replayed.
+C = D + U diag(v) U^T inside, and no one call computes that), and the
+sampler step's two kernels beside the route the step took before them
+(``phase_step_kernels``): K5, the fused GP predict, at 50 / 100 / 1,500
+walkers on 41 PCs x 195 design points, and K6, the stretch move's three
+launches per step, at 100 and 200 walkers and 30 x 100 (neither has a
+library call). The fit checks K3's launches by batch size, counted through
+the fit programs' replays; the steer prints them. In block mode every
+likelihood evaluation is one launch of K1 for all width buckets; each path
+checks that its K1 launches equal its block-mode evaluations, counted as its
+eager evaluations plus two per step a program replayed, that K5 runs once
+per GP predict of those evaluations, and that K6 runs three times per
+ensemble step. The programs phase also reads the nodes of a block-mode
+step's graph and fails above MAX_STEP_NODES.
 
 One line per phase; the line before the last is the card's name and power
 limit as ``nvidia-smi`` reports them, the line before that the kernels' JSON
@@ -136,6 +145,12 @@ STEER_CV_K, STEER_CHECKPOINT_EVERY = 5, 500
 PROGRAM_FIT = {"n_restarts": 4, "n_opt_iters": 20}
 PROGRAM_CHECK_STEPS, PROGRAM_TIMED_STEPS, PROGRAM_EAGER_STEPS = 200, 2000, 500
 PROGRAM_PROFILED_STEPS = 100  # the profiler window that gives the device-busy time per step
+# A block-mode step's graph holds at most this many nodes that run on the
+# card (kernels, copies, sets): the move (K6) three, per evaluation the GP
+# predict (K5) one, K1 two (its launch and its fixed-order sum) and the box
+# prior's few elementwise calls, then the state's copies into the static
+# buffers and the counter's advance.
+MAX_STEP_NODES = 32
 # The fit-programs phase: the schedules held against the eager loop beside
 # the default one, the iterations profiled per stage, and the group whose
 # 5-fold CV runs eager and through the programs (the widest: 25 PCs).
@@ -252,17 +267,18 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, spin_cycles: int = 10_000_000) -> float:
     """Mean device time of ``fn`` over ``reps`` back-to-back calls (CUDA events).
 
-    The card first runs a spin kernel of about 5 ms, during which the host
-    queues all the calls, so a kernel shorter than its wrapper's host
-    overhead is timed on the device and not at the rate the host launches it.
+    The card first runs a spin kernel of ``spin_cycles`` clocks (about 5 ms by
+    default), during which the host queues all the calls, so a kernel shorter
+    than its wrapper's host overhead is timed on the device and not at the
+    rate the host launches it.
     """
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(10_000_000)
+    torch.cuda._sleep(spin_cycles)
     start.record()
     for _ in range(reps):
         fn()
@@ -271,12 +287,12 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def time_pair(kernel_fn, plain_fn, reps: int) -> tuple[float, float]:
+def time_pair(kernel_fn, plain_fn, reps: int, spin_cycles: int = 10_000_000) -> tuple[float, float]:
     """(kernel ms, plain ms), measured in turns: plain, kernel, kernel, plain."""
-    p1 = cuda_ms(plain_fn, reps)
-    k1 = cuda_ms(kernel_fn, reps)
-    k2 = cuda_ms(kernel_fn, reps)
-    p2 = cuda_ms(plain_fn, reps)
+    p1 = cuda_ms(plain_fn, reps, spin_cycles)
+    k1 = cuda_ms(kernel_fn, reps, spin_cycles)
+    k2 = cuda_ms(kernel_fn, reps, spin_cycles)
+    p2 = cuda_ms(plain_fn, reps, spin_cycles)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -303,36 +319,59 @@ def bound_text(ms: float, b: dict) -> str:
 def count_evaluations():
     """Count likelihood evaluations by mode while the block runs: every eager
     call of ``log_likelihood`` (not those a stream capture records, which run
-    nothing), and two per step that a sampler program replays as a graph."""
+    nothing), and two per step that a sampler program replays as a graph.
+    Beside them: "predicts", the GP predicts those evaluations make (one per
+    stacked GP group), and "steps", the ensemble steps run eagerly or
+    replayed (each sub-step of a thinned row counts)."""
+    from bayesian_inference_tpu_torch.mcmc import stretch
     from bayesian_inference_tpu_torch.mcmc.likelihood import EmulatorLikelihood
     from bayesian_inference_tpu_torch.mcmc.programs import SamplerPrograms
 
-    inner, inner_chunk = EmulatorLikelihood.log_likelihood, SamplerPrograms.chunk
-    calls = {"block": 0, "lowrank": 0}
+    inner, inner_chunk, inner_step = EmulatorLikelihood.log_likelihood, SamplerPrograms.chunk, stretch._step_at_row
+    calls = {"block": 0, "lowrank": 0, "predicts": 0, "steps": 0}
 
     def counted(self, theta):
         if not torch.cuda.is_current_stream_capturing():
             calls[self.mode] += 1
+            calls["predicts"] += len(self.groups)
         return inner(self, theta)
 
     def counted_chunk(self, state, like, n_steps, *args, **kwargs):
         if self.captured and not self._parts:  # a point-sharded program's shares count themselves
             calls[self.mode] += 2 * n_steps
+            calls["predicts"] += 2 * n_steps * len(like.groups)
+            calls["steps"] += n_steps
         return inner_chunk(self, state, like, n_steps, *args, **kwargs)
+
+    def counted_step(*args, **kwargs):
+        if not torch.cuda.is_current_stream_capturing():
+            calls["steps"] += 1
+        return inner_step(*args, **kwargs)
 
     EmulatorLikelihood.log_likelihood = counted
     SamplerPrograms.chunk = counted_chunk
+    stretch._step_at_row = counted_step
     try:
         yield calls
     finally:
         EmulatorLikelihood.log_likelihood = inner
         SamplerPrograms.chunk = inner_chunk
+        stretch._step_at_row = inner_step
 
 
-def check_k1_per_evaluation(launches: dict, calls: dict, path: str) -> None:
-    """K1 runs once per block-mode likelihood evaluation: one launch for all buckets."""
+def check_k1_per_evaluation(launches: dict, calls: dict, path: str, predicts_elsewhere: bool = False) -> None:
+    """K1 runs once per block-mode likelihood evaluation: one launch for all
+    buckets; K5 once per GP predict of an evaluation (beside the ones of a
+    path that also predicts outside the likelihood, ``predicts_elsewhere``:
+    the cross-validation); K6 three times per ensemble step."""
     check(launches["fused_block_mvn"] == calls["block"],
           f"{path}: {launches['fused_block_mvn']} K1 launches for {calls['block']} block-mode evaluations")
+    k5_ok = (launches["gp_predict"] >= calls["predicts"] if predicts_elsewhere
+             else launches["gp_predict"] == calls["predicts"])
+    check(k5_ok and calls["predicts"] > 0,
+          f"{path}: {launches['gp_predict']} K5 launches for {calls['predicts']} GP predicts of the likelihood")
+    check(launches["stretch_move"] == 3 * calls["steps"] and calls["steps"] > 0,
+          f"{path}: {launches['stretch_move']} K6 launches for {calls['steps']} ensemble steps (three per step)")
 
 
 def normwise_rel(a: torch.Tensor, ref: torch.Tensor) -> float:
@@ -770,6 +809,196 @@ def phase_k4_wide(device, B: int = 50, n: int = 72, reps: int = 50) -> dict:
     return {"shape": f"B={B}, {n} x {n}", "ms": ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
 
 
+def gp_stack(device, k: int = N_PCS, N: int = 195, d: int = 6, seed: int = 11):
+    """k stacked Matern-1.5 GPs (+ white noise) on one random design of the
+    production width, hyperparameters from the fit's range, fitted on the
+    host in float64: (config, f32 posterior on the card, float64 posterior
+    on the card)."""
+    import dataclasses
+
+    from bayesian_inference_tpu_torch.models import gp
+    from bayesian_inference_tpu_torch.ops.gram import KernelConfig, KernelParams
+
+    rng = np.random.default_rng(seed)
+    X, Y = rng.uniform(0.0, 1.0, (N, d)), rng.normal(size=(k, N))
+    params = KernelParams(torch.tensor(np.log(rng.uniform(0.2, 3.0, (k, d)))),
+                          torch.tensor(np.log(rng.uniform(1e-3, 0.1, k))), torch.zeros(k, dtype=torch.float64))
+    cfg = KernelConfig(nu=1.5)
+    post = gp.posterior_from_params_matmul(cfg, params, torch.tensor(X), torch.tensor(Y), 1e-6)
+
+    def on(dtype):
+        move = lambda x: x.to(device=device, dtype=dtype).contiguous()  # noqa: E731
+        p = KernelParams(*(move(x) for x in (post.params.log_length_scale, post.params.log_noise,
+                                             post.params.log_constant)))
+        return dataclasses.replace(post, params=p, X=move(post.X), alpha=move(post.alpha), Kinv=move(post.Kinv),
+                                   prior_var=move(post.prior_var), lml=move(post.lml))
+
+    return cfg, on(torch.float32), on(torch.float64)
+
+
+def k5_bound(k: int, B: int, N: int, d: int) -> dict:
+    """K5's bound: per (PC, walker, design point) the distance's 4 d
+    operations (difference, square, multiply-add), the Matern-1.5 value's 6
+    (sqrt, scale, add, exp, product, constant), the mean's 2, the variance's
+    row product 2 N and dot 2; every operand read once (theta, X, the
+    length scales, constants, alpha, K^-1, prior variances) and both (B, k)
+    results written once."""
+    flops = k * B * N * (4 * d + 6 + 2 + 2 * N + 2) + 2 * k * B
+    n_bytes = 4 * (B * d + N * d + k * d + k + k * N + k * N * N + k) + 4 * 2 * B * k
+    return bound(flops, n_bytes)
+
+
+def k6_bound(P: int, W: int, d: int) -> dict:
+    """K6's bound for one step (its three launches): per walker the stretch
+    factor's 4 operations, the proposal's 3 d and the log ratio's 6 (two
+    logs, the products and sums, the comparison); read once: the state
+    (coords, log-probs, accept counts and the row's base counts), the step's
+    draw row (perm, inv, partners int64; u_z, u_acc) and the proposals'
+    log-probs; written once: both halves' proposals, the new state and the
+    output row (chain, log-probs, mean acceptance)."""
+    flops = P * W * (4 + 3 * d + 6)
+    reads = 4 * P * W * (d + 3) + 8 * 3 * P * W + 4 * 2 * P * W + 4 * P * W
+    writes = 4 * P * W * d + 4 * P * W * (d + 2) + 4 * P * W * (d + 1) + 4 * P
+    return bound(flops, reads + writes)
+
+
+def box_gaussian(d: int, device):
+    """A float32 log-density on the unit box (-inf outside), elementwise per walker."""
+    lo, hi = torch.zeros(d, device=device), torch.ones(d, device=device)
+
+    def fn(x):
+        inside = torch.all((x > lo) & (x < hi), dim=-1)
+        r = (x - 0.4) / 0.15
+        return torch.where(inside, -0.5 * (r * r).sum(-1), -torch.inf)
+
+    return fn
+
+
+def phase_step_kernels(device, reps: int = 20) -> tuple[list[dict], list[dict]]:
+    """K5 (the fused GP predict) and K6 (the stretch move), each against its
+    plain version (the route the sampler step took before them) at the main
+    path's shapes: K5 at B = 50 / 100 / 1,500 walkers (one analysis' half
+    ensemble, a 200-walker run's, the 30-point closure batch's) on 41 PCs x
+    195 design points, its error against float64 at most twice the f32
+    plain version's, bit-equal on repeat and across batch sizes; K6 at 100
+    and 200 walkers and 30 x 100, a chunk of steps bit-equal to its plain
+    phases. Times in turns (plain, kernel, kernel, plain), the queue
+    pre-filled, beside each bound and its share. Returns the kernels'
+    record entries, the main path's shape first."""
+    from bayesian_inference_tpu_torch.mcmc import stretch
+    from bayesian_inference_tpu_torch.ops import gp_predict as k5
+    from bayesian_inference_tpu_torch.ops import stretch_move as k6
+
+    cfg, post32, post64 = gp_stack(device)
+    k, N = post32.alpha.shape
+    d = post32.X.shape[1]
+    k5_entries, row50 = [], None
+    batches = (N_WALKERS // 2, N_WALKERS, 30 * N_WALKERS // 2)
+    points = torch.tensor(np.random.default_rng(12).uniform(0.0, 1.0, (max(batches), d)), device=device)
+    for B in batches:
+        theta64 = points[:B].contiguous()  # every batch starts with the same walkers
+        theta = theta64.float()
+
+        def kernel():
+            return k5.gp_predict(cfg, post32, theta)
+
+        def plain():
+            return k5.gp_predict_plain(cfg, post32, theta)
+
+        before = k5.KERNEL.launches
+        got = kernel()
+        torch.cuda.synchronize()
+        check(k5.KERNEL.launches == before + 1, f"K5 B={B}: not one launch")
+        f32, ref = plain(), k5.gp_predict_plain(cfg, post64, theta64)
+        errs = {}
+        for name, x, p, r in zip(("mean", "var"), got, f32, ref):
+            check(x.shape == (B, k) and bool(torch.isfinite(x).all()), f"K5 B={B}: non-finite or misshapen {name}")
+            scale = float(r.abs().max())
+            errs[name] = (float((x.double() - r).abs().max()) / scale, float((p.double() - r).abs().max()) / scale)
+            check(errs[name][0] <= 2 * errs[name][1], f"K5 B={B}: {name} error {errs[name][0]:.3g} against float64, "
+                                                      f"more than twice the f32 plain version's {errs[name][1]:.3g}")
+        again = kernel()
+        check(torch.equal(again[0], got[0]) and torch.equal(again[1], got[1]), f"K5 B={B}: not bit-equal on repeat")
+        if row50 is None:
+            row50 = got
+        else:
+            check(torch.equal(got[0][:len(row50[0])], row50[0]) and torch.equal(got[1][:len(row50[0])], row50[1]),
+                  f"K5 B={B}: the first walkers differ from the same walkers in a batch of {len(row50[0])}")
+        max_abs = max(float((x - p).abs().max()) for x, p in zip(got, f32))
+        ms, plain_ms = time_pair(kernel, plain, reps)
+        b = k5_bound(k, B, N, d)
+        print(f"K5 gp_predict B={B}, k={k}, N={N}, d={d}, Matern-1.5, f32: max err / max|ref| against float64: mean "
+              f"kernel {errs['mean'][0]:.3g} / plain f32 {errs['mean'][1]:.3g}, var kernel {errs['var'][0]:.3g} / "
+              f"plain f32 {errs['var'][1]:.3g} (kernel at most 2x plain); max abs err vs plain f32 {max_abs:.3g}; "
+              f"bit-equal on repeat and across batch sizes; kernel {ms:.4f} ms, plain (today's route) "
+              f"{plain_ms:.4f} ms per predict; {bound_text(ms, b)}", flush=True)
+        k5_entries.append({"max_abs_err": max_abs, "err_vs_float64": {n: e[0] for n, e in errs.items()},
+                           "plain_err_vs_float64": {n: e[1] for n, e in errs.items()},
+                           **timed(ms, plain_ms, b, shape=f"B={B}, k={k}, N={N}, d={d}")})
+
+    k6_entries = []
+    n_check = 20
+    for P, W in ((1, N_WALKERS), (1, 2 * N_WALKERS), (30, N_WALKERS)):
+        lead = (P,) if P > 1 else ()
+        gens = [torch.Generator(device=device).manual_seed(70 + i) for i in range(P)]
+        fn = box_gaussian(d, device)
+        x0 = 0.1 + 0.8 * torch.rand((*lead, W, d), generator=gens[0], device=device)
+        rands = (stretch.pregen_rands_batched(n_check, W, gens, torch.float32) if P > 1
+                 else stretch.pregen_rands(n_check, W, gens[0], torch.float32))
+        state0 = stretch.init_state(fn, x0)
+        before = k6.KERNEL.launches
+        got = (stretch.run_chunk_batched if P > 1 else stretch.run_chunk)(state0, fn, n_check, rands=rands)
+        torch.cuda.synchronize()
+        check(k6.KERNEL.launches == before + 3 * n_check, f"K6 P={P} W={W}: not three launches per step")
+        outputs = stretch.chunk_outputs(n_check, state0)
+        t = torch.zeros(1, dtype=torch.long, device=device)
+        state = state0
+        for _ in range(n_check):
+            move = k6.propose_plain(state.coords, state.log_prob, rands, t, 1, 0, stretch.STRETCH_A)
+            move = k6.accept_propose_plain(move, fn(move.y), rands, t, 1, 0, stretch.STRETCH_A)
+            state = stretch.EnsembleState(*k6.accept_assemble_plain(move, fn(move.y), rands, t, 1, 0, stretch.STRETCH_A,
+                                                                    state.n_accepted, state.n_accepted, outputs))
+            t += 1
+        (final, (chain, log_prob, acc)), (chain_p, log_prob_p, acc_p) = got, outputs
+        equal = all(torch.equal(a, b) for a, b in zip((*final, chain, log_prob), (*state, chain_p, log_prob_p)))
+        acc_ulps = float((acc - acc_p).abs().max()) / (float(torch.finfo(torch.float32).eps) * float(acc_p.abs().max()))
+        check(equal, f"K6 P={P} W={W}: {n_check} steps not bit-equal to the plain phases")
+        check(acc_ulps <= 1.0, f"K6 P={P} W={W}: mean acceptance {acc_ulps:.2f} ulps off the plain phases")
+        check(0 < int(final.n_accepted.sum()) < n_check * W * P, f"K6 P={P} W={W}: no move or every move accepted")
+
+        # One step's move alone: the three phases on fixed log-probs of the proposals.
+        g = torch.Generator(device=device).manual_seed(5)
+        lp0 = -torch.rand((*lead, W // 2), generator=g, device=device)
+        lp1 = -torch.rand((*lead, W // 2), generator=g, device=device)
+        t0 = torch.zeros(1, dtype=torch.long, device=device)
+        out1 = stretch.chunk_outputs(1, state0)
+
+        def kernel():
+            m = k6.propose(state0.coords, state0.log_prob, rands, t0, 1, 0, stretch.STRETCH_A)
+            m = k6.accept_propose(m, lp0, rands, t0, 1, 0, stretch.STRETCH_A)
+            return k6.accept_assemble(m, lp1, rands, t0, 1, 0, stretch.STRETCH_A, state0.n_accepted,
+                                      state0.n_accepted, out1)
+
+        def plain():
+            m = k6.propose_plain(state0.coords, state0.log_prob, rands, t0, 1, 0, stretch.STRETCH_A)
+            m = k6.accept_propose_plain(m, lp0, rands, t0, 1, 0, stretch.STRETCH_A)
+            return k6.accept_assemble_plain(m, lp1, rands, t0, 1, 0, stretch.STRETCH_A, state0.n_accepted,
+                                            state0.n_accepted, out1)
+
+        one, one_p = kernel(), plain()
+        max_abs = max(float((a.double() - b.double()).abs().max()) for a, b in zip(one, one_p))
+        # A step's move is three wrapper calls on the host and ~40 launches
+        # plain: a spin of ~50 ms keeps both queued ahead of the card.
+        ms, plain_ms = time_pair(kernel, plain, 50, spin_cycles=100_000_000)
+        b = k6_bound(P, W, d)
+        print(f"K6 stretch_move P={P} x W={W}, d={d}, f32: {n_check} steps bit-equal to the plain phases (chain, "
+              f"log-probs, final state, accept counts), mean acceptance {acc_ulps:.2f} ulps off; one step's move (3 "
+              f"launches) max abs err vs plain {max_abs:.3g}; kernel {ms:.4f} ms, plain (today's route) {plain_ms:.4f} "
+              f"ms per step's move; {bound_text(ms, b)}", flush=True)
+        k6_entries.append({"max_abs_err": max_abs, **timed(ms, plain_ms, b, shape=f"P={P} x W={W}, d={d}")})
+    return k5_entries, k6_entries
+
+
 def production_config(work_dir: Path, table_dir: Path, n_walkers: int, n_burn: int, n_steps: int,
                       n_restarts: int) -> dict:
     """The top-level configuration dict bench.py writes for its production profile."""
@@ -901,6 +1130,40 @@ def device_ms_per_step(fn, n_steps: int, top: int = 8) -> tuple[float | None, st
     return busy_us / 1e3 / n_steps, f"{n_kernels:.1f} kernels and copies per step; {kernels}"
 
 
+def graph_node_counts(programs) -> dict[str, int]:
+    """The nodes of a CUDA graph of one program step, by type (kernel,
+    memcpy, memset, other), read through libcuda (``cuGraphGetNodes``)
+    from a capture of the program's step on its own buffers that torch keeps
+    uninstantiated (``keep_graph``); the capture runs and counts nothing and
+    is discarded."""
+    import ctypes
+    from collections import Counter
+
+    from bayesian_inference_tpu_torch.ops import _native
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    side = torch.cuda.Stream(programs.device)
+    side.wait_stream(torch.cuda.current_stream(programs.device))
+    with _native.captured_launches():
+        with torch.cuda.graph(graph, stream=side):
+            programs._step()
+    torch.cuda.current_stream(programs.device).wait_stream(side)
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(libcuda.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(libcuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    kinds = Counter()
+    names = {0: "kernel", 1: "memcpy", 2: "memset"}  # CUgraphNodeType
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(libcuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0, "cuGraphNodeGetType failed")
+        kinds[names.get(kind.value, "other")] += 1
+    del graph
+    return {k: kinds[k] for k in ("kernel", "memcpy", "memset", "other")}
+
+
 def same_chunk(a, b) -> dict[str, bool]:
     """Bit equality of two chunk results (final state, (chain, log-probs, acceptance))."""
     (sa, ya), (sb, yb) = a, b
@@ -985,12 +1248,15 @@ def phase_programs(device, kernels, data: dict) -> dict:
                 torch.cuda.synchronize()
                 launches = counts(kernels)
                 same[origin] = same_chunk(out, eager)
-                check(launches[kernel_of[mode]] == 2 * PROGRAM_CHECK_STEPS and sum(launches.values()) ==
-                      2 * PROGRAM_CHECK_STEPS, f"programs {name} ({origin}): {launches} launches counted over "
-                      f"{PROGRAM_CHECK_STEPS} replayed steps, expected {2 * PROGRAM_CHECK_STEPS} of {kernel_of[mode]}")
+                expected = {**{k: 0 for k in kernels}, kernel_of[mode]: 2 * PROGRAM_CHECK_STEPS,
+                            "gp_predict": 2 * PROGRAM_CHECK_STEPS * len(like.groups),
+                            "stretch_move": 3 * PROGRAM_CHECK_STEPS}
+                check(launches == expected, f"programs {name} ({origin}): {launches} launches counted over "
+                      f"{PROGRAM_CHECK_STEPS} replayed steps, expected {expected}")
                 if origin == "fitted":
                     del programs, out  # one program alive at a time: the peak below is one program's
             capture_s = programs.compile_seconds
+            nodes = graph_node_counts(programs)
 
             # In turns: eager, program, program, eager; draws from the
             # generator inside each run, as the runners make them.
@@ -1013,6 +1279,7 @@ def phase_programs(device, kernels, data: dict) -> dict:
                                                                              generator=draw_from),
                                                       PROGRAM_PROFILED_STEPS)}
             busy = {k: v[0] for k, v in profiled.items()}
+            work_nodes = sum(nodes[k] for k in ("kernel", "memcpy", "memset"))
             wall = {"eager": eager_ms, "program": program_ms}
             busy_text = ", ".join(
                 f"{k} not measured (the profiler saw no device time)" if v is None
@@ -1028,7 +1295,8 @@ def phase_programs(device, kernels, data: dict) -> dict:
                   f"{points * 1e3 / program_ms:.1f} {'point-' if n_points else ''}steps/s ({eager_ms / program_ms:.2f}x); "
                   f"step FLOPs {points * step_flops / 1e6:.1f} MFLOP -> {tflops:.3f} TFLOP/s, "
                   f"{tflops / peak_tflops:.2%} of the FP32 peak {peak_tflops:.0f} TFLOP/s; device busy (profiler, "
-                  f"{PROGRAM_PROFILED_STEPS} steps): {busy_text}; capture {capture_s:.3f} s; "
+                  f"{PROGRAM_PROFILED_STEPS} steps): {busy_text}; graph nodes per step {nodes} (libcuda), {work_nodes} kernel nodes per step "
+                  f"at {program_ms:.4f} ms/step (at most {MAX_STEP_NODES} in block mode); capture {capture_s:.3f} s; "
                   f"peak bytes above the {base_bytes / 1e6:.1f} MB held before (one program with its buffers for "
                   f"{PROGRAM_TIMED_STEPS}-step chunks, its graph's pool, a chunk's draws and outputs) "
                   f"{peak_bytes / 1e6:.1f} MB; card: {smi}",
@@ -1040,7 +1308,10 @@ def phase_programs(device, kernels, data: dict) -> dict:
             for origin, eq in same.items():
                 check(all(eq.values()), f"programs {name}: captured on the {origin} likelihood, not bit-equal to the "
                                         f"eager loop: {eq}")
+            check(mode != "block" or work_nodes <= MAX_STEP_NODES,
+                  f"programs {name}: {work_nodes} kernel nodes per step, more than {MAX_STEP_NODES}")
             results[name] = {"eager_ms_per_step": eager_ms, "program_ms_per_step": program_ms, "turns_ms": turns,
+                             "kernel_nodes_per_step": work_nodes, "graph_nodes": nodes,
                              "capture_s": capture_s, "peak_bytes": peak_bytes, "step_mflop": points * step_flops / 1e6,
                              "device_busy_ms_per_step": busy}
             del programs, eager, out, rands
@@ -1271,6 +1542,7 @@ def phase_slice(device, kernels, data: dict, n_opt_iters: int = N_OPT_ITERS, n_c
     from bayesian_inference_tpu_torch.models import gp_fit
     from bayesian_inference_tpu_torch.models.emulator import fit_emulators, posterior_from_artifact
     from bayesian_inference_tpu_torch.ops.fused_mvn import fused_block_mvn_buckets_plain
+    from bayesian_inference_tpu_torch.ops.gp_predict import gp_predict_plain
     from bayesian_inference_tpu_torch.utils import flops
 
     observables, emu, mcmc = data["observables"], data["emu"], data["mcmc"]
@@ -1336,7 +1608,8 @@ def phase_slice(device, kernels, data: dict, n_opt_iters: int = N_OPT_ITERS, n_c
     theta = torch.tensor(out["chain"][-1][:n_check], dtype=torch.float64, device=device)
     lp = likes[torch.float32].log_posterior(theta.float()).double()
     like64 = likes[torch.float64]
-    z, v = like64.gp_eval(theta)
+    zs, vs = zip(*(gp_predict_plain(cfg, posts, theta) for cfg, posts in like64.groups))
+    z, v = torch.cat(zs, dim=1), torch.cat(vs, dim=1)
     lp64 = fused_block_mvn_buckets_plain(like64.U, like64.D, like64.d0, z, v)
     lp_rel = float((lp - lp64).abs().max() / lp64.abs().max())
     print(f"slice check: fitted LML vs float64 recompute max |delta| {lml_delta:.4g} nat (tol {LML_TOL_NAT}); "
@@ -1564,10 +1837,12 @@ def phase_sampler_options(device, kernels, s: dict) -> dict:
                 rows = PROGRAM_CHECK_STEPS // options.get("thin", 1)
                 check(out[1][-1].shape[0] == rows if options.get("store_chain", True) else out[1].shape[0] == rows,
                       f"options {name} ({case}): output rows")
-                # init is one eager evaluation; every sub-step two through the replays
+                # init is one eager evaluation; every sub-step two through the
+                # replays, each with one GP predict per group, and three of the move
                 expect = 1 + 2 * PROGRAM_CHECK_STEPS
-                check(launches[kernel_of[mode]] == expect and sum(launches.values()) == expect,
-                      f"options {name} ({case}): {launches} launches, expected {expect} of {kernel_of[mode]}")
+                expected = {**{k: 0 for k in kernels}, kernel_of[mode]: expect,
+                            "gp_predict": expect * len(like.groups), "stretch_move": 3 * PROGRAM_CHECK_STEPS}
+                check(launches == expected, f"options {name} ({case}): {launches} launches, expected {expected}")
                 check(all(same[case].values()), f"options {name} ({case}): not bit-equal to the eager loop: {same[case]}")
                 launched[case] = launches[kernel_of[mode]]
                 del programs, out, eager, rands
@@ -1919,9 +2194,11 @@ def phase_parity(device, kernels, s: dict, data: dict) -> dict:
         passed, reasons = parity.parity_gates(report)
         print(f"parity {mode}: " + json.dumps({**report, "gates_passed": passed, "gate_failures": reasons,
                                               "seconds": seconds, "launches": launches}), flush=True)
-        kernel = "fused_block_mvn" if mode == "block" else "block_mvn"
-        check(launches[kernel] == evals[mode] > 0 and sum(launches.values()) == launches[kernel],
-              f"parity {mode}: launches {launches} for {evals} likelihood evaluations")
+        kernel, other = ("fused_block_mvn", "block_mvn") if mode == "block" else ("block_mvn", "fused_block_mvn")
+        # Ours launches its likelihood's kernel, K5 and K6; the reference none.
+        check(launches[kernel] == evals[mode] > 0 and launches[other] == launches["diag_chol_inv"] == 0
+              and launches["gp_predict"] == evals["predicts"] and launches["stretch_move"] == 3 * evals["steps"] > 0,
+              f"parity {mode}: launches {launches} for {evals} likelihood evaluations and steps")
         check(passed, f"parity {mode}: " + "; ".join(reasons))
         check(report["ref_vs_unrolled_rel"] <= REF_VS_UNROLLED_TOL,
               f"parity {mode}: the reference's likelihood strays from the plain version by "
@@ -1969,7 +2246,8 @@ def phase_bench(device, kernels) -> dict:
           f"acceptance {rep['acceptance']:.4f}; float32 vs float64 likelihood {res['likelihood_check_rel']:.3g}; "
           f"{res['flops']['steps_per_s']:.1f} production steps/s, mfu {res['flops']['mfu']}", flush=True)
     check(rep["programs_built"] == {"fit": 0, "sampler": 0}, f"bench fixture: programs built in the rep {rep}")
-    check(rep["launches"]["fused_block_mvn"] == 2 * (N_BURN + N_STEPS) + 3 and rep["launches"]["diag_chol_inv"] > 0
+    check(rep["launches"]["fused_block_mvn"] == rep["launches"]["gp_predict"] == 2 * (N_BURN + N_STEPS) + 3
+          and rep["launches"]["stretch_move"] == 3 * (N_BURN + N_STEPS) and rep["launches"]["diag_chol_inv"] > 0
           and rep["launches"]["block_mvn"] == 0, f"bench fixture: launches {rep['launches']}")
     for mode in ("lowrank", "block"):
         c = closure.ClosureSettings(steps=BENCH_CLOSURE_STEPS, walkers=N_WALKERS, points=BENCH_POINTS,
@@ -1977,7 +2255,8 @@ def phase_bench(device, kernels) -> dict:
         line = closure.run_closure(s, c, device)
         print(f"bench closure {mode}: " + json.dumps(line), flush=True)
         kernel = "block_mvn" if mode == "lowrank" else "fused_block_mvn"
-        check(line["launches"][kernel] == 2 * (N_BURN + BENCH_CLOSURE_STEPS) + 3 + 6,
+        check(line["launches"][kernel] == line["launches"]["gp_predict"] == 2 * (N_BURN + BENCH_CLOSURE_STEPS) + 3 + 6
+              and line["launches"]["stretch_move"] == 3 * (N_BURN + BENCH_CLOSURE_STEPS + 3),
               f"bench closure {mode}: launches {line['launches']}")
         check(line["programs_built"] == {"fit": 0, "sampler": 1}, f"bench closure {mode}: {line['programs_built']}")
         check(line["checkpoint"]["appends"] == BENCH_CLOSURE_STEPS // BENCH_CLOSURE_CHUNK + 1,
@@ -2027,8 +2306,10 @@ def phase_predict(device, kernels, s: dict, n_posterior: int = 100) -> dict:
                      "diag_rel": diag_rel}
         del pred, ref
     launches = counts(kernels)
-    print(f"predict kernel launches: {launches} (the GP predict and the covariance are plain PyTorch, as JAX "
-          "computes them outside any Pallas kernel)", flush=True)
+    expected = {**{k: 0 for k in kernels}, "gp_predict": 2 * len(s["artifacts"])}
+    print(f"predict kernel launches: {launches} (the GP predict by K5, one launch per group and call; the "
+          "covariance plain PyTorch, as JAX computes it outside any Pallas kernel)", flush=True)
+    check(launches == expected, f"predict: launches {launches}, expected {expected}")
     return out
 
 
@@ -2160,7 +2441,7 @@ def phase_steer(device, kernels) -> dict:
           f"{N_STEPS // 4}, acceptance per point {af_points.min():.4f}..{af_points.max():.4f}", flush=True)
     check(launches["diag_chol_inv"] > 0 and launches["fused_block_mvn"] > 0,
           f"steer: a kernel of the path never launched: {launches}")
-    check_k1_per_evaluation(launches, evals, "steer")
+    check_k1_per_evaluation(launches, evals, "steer", predicts_elsewhere=True)
     check(sorted(result["timings"]) == sorted(["initialize", "preprocess", "fit_emulators", "cross_validation",
                                                 "mcmc", "closure"]), f"steer: stages run {sorted(result['timings'])}")
     check(sorted(cv) == sorted(PRODUCTION_GROUPS), f"steer: CV ran for {sorted(cv)}")
@@ -2239,7 +2520,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
-    from bayesian_inference_tpu_torch.ops import blocked_cholesky, fused_mvn, tiny_mvn
+    from bayesian_inference_tpu_torch.ops import blocked_cholesky, fused_mvn, gp_predict, stretch_move, tiny_mvn
     from bayesian_inference_tpu_torch.ops._native import build_all
 
     t_start = time.perf_counter()
@@ -2250,7 +2531,7 @@ def main() -> int:
           f"{torch.cuda.device_count()} device(s), using {torch.cuda.get_device_name(0)}", flush=True)
 
     kernels = {"diag_chol_inv": blocked_cholesky.KERNEL, "fused_block_mvn": fused_mvn.KERNEL,
-               "block_mvn": tiny_mvn.KERNEL}
+               "block_mvn": tiny_mvn.KERNEL, "gp_predict": gp_predict.KERNEL, "stretch_move": stretch_move.KERNEL}
     t = time.perf_counter()
     build_all(kernels.values())
     for k in kernels.values():
@@ -2268,6 +2549,7 @@ def main() -> int:
     k4, *k4_other = phase_k4(device)
     k1_k160, k1_dense = phase_k1_widths(device)
     k4_dense = phase_k4_wide(device)
+    (k5, *k5_other), (k6, *k6_other) = phase_step_kernels(device)
     data = production_data()
     program_rates = phase_programs(device, kernels, data)
     fit_rates = phase_fit_programs(device, kernels, data)
@@ -2311,6 +2593,14 @@ def main() -> int:
          "source": "src/bayesian_inference_tpu_torch/csrc/tiny_mvn.cu",
          "replaces": "src/bayesian_inference_tpu/ops/pallas_mvn.py:90",
          "launches": total["block_mvn"], **k4, "other_shapes": k4_other},
+        {"name": "gp_predict", "route": "cuda",
+         "source": "src/bayesian_inference_tpu_torch/csrc/gp_predict.cu",
+         "replaces": "src/bayesian_inference_tpu/models/gp.py:252",
+         "launches": total["gp_predict"], **k5, "other_shapes": k5_other},
+        {"name": "stretch_move", "route": "cuda",
+         "source": "src/bayesian_inference_tpu_torch/csrc/stretch_move.cu",
+         "replaces": "src/bayesian_inference_tpu/mcmc/stretch.py:118",
+         "launches": total["stretch_move"], **k6, "other_shapes": k6_other},
     ]}
     print(json.dumps(record))
     print(smi)

@@ -211,8 +211,7 @@ def run_closure(s: bench.Settings, c: ClosureSettings, device: torch.device) -> 
         bench.gate(bool(np.isfinite(o["final_log_prob"]).all()), f"{what}: non-finite final log-probs")
         bench.gate(bench.ACCEPTANCE_RANGE[0] < af < bench.ACCEPTANCE_RANGE[1], f"{what}: mean acceptance {af:.4f}")
         bench.gate(bool(np.isfinite(o["split_rhat"]).all()), f"{what}: non-finite split-R-hat")
-    bench.gate_launches(counts, c.mode, bench.expected_likelihood_launches(s.burn, c.steps, built["sampler"]), device,
-                        f"closure {c.mode}")
+    bench.gate_launches(counts, c.mode, s.burn, c.steps, built["sampler"], device, f"closure {c.mode}")
     rel = bench.check_likelihood(f["emu"], mcmc, f["artifacts"], f["observables"], out[indices[0]]["final_coords"],
                                  c.mode, device)
 

@@ -98,15 +98,18 @@ def library_mvn_terms(dY: torch.Tensor, C: torch.Tensor) -> tuple[torch.Tensor, 
 
 def reference_log_posterior(like, theta: torch.Tensor, terms=library_mvn_terms) -> torch.Tensor:
     """``like.log_posterior(theta)`` without the kernels, on either device:
-    the GP predict, then the block likelihood (each bucket's residuals and
-    covariances assembled in plain torch) or the Woodbury likelihood, with
+    the GP predict's plain version, then the block likelihood (each bucket's
+    residuals and covariances assembled in plain torch) or the Woodbury likelihood, with
     ``terms`` giving (quad, half_logdet) of each covariance: by default the
     library Cholesky, or ``tiny_mvn.mvn_terms_plain``, the kernels' own plain
     version (the unrolled factorisation). -inf outside the prior box."""
+    from bayesian_inference_tpu_torch.ops.gp_predict import gp_predict_plain
     from bayesian_inference_tpu_torch.ops.mvn import woodbury_loglike
 
     inside = torch.all((theta > like.theta_min) & (theta < like.theta_max), dim=-1)
-    z, v = like.gp_eval(torch.clamp(theta, like.theta_min, like.theta_max))
+    theta_safe = torch.clamp(theta, like.theta_min, like.theta_max)
+    zs, vs = zip(*(gp_predict_plain(cfg, posts, theta_safe) for cfg, posts in like.groups))
+    z, v = torch.cat(zs, dim=1), torch.cat(vs, dim=1)
     if like.mode == "block":
         ll = 0.0
         for U, D, d0 in zip(like.U, like.D, like.d0):

@@ -6,8 +6,10 @@
 It builds the kernels, makes the production tables, runs ``phase_slice`` (the
 fit and the short run whose emulators and chain the later phases reuse) and
 then the named phases (``options``, ``closure_slabs``, ``mesh``,
-``full_length``, ``parity``; ``k4`` and ``bench`` need no slice but run after it), each as ``chip_smoke.py`` runs it. For looking at one phase
-without paying for the whole script; ``chip_smoke.py`` stays the check.
+``full_length``, ``parity``; ``k4``, ``step_kernels``, ``programs`` and
+``bench`` need no slice but run after it), each as ``chip_smoke.py`` runs it.
+For looking at one phase without paying for the whole script;
+``chip_smoke.py`` stays the check.
 """
 
 import sys
@@ -24,13 +26,13 @@ def main(names) -> int:
         print("run_smoke_phases: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(chip_smoke.SRC))
-    from bayesian_inference_tpu_torch.ops import blocked_cholesky, fused_mvn, tiny_mvn
+    from bayesian_inference_tpu_torch.ops import blocked_cholesky, fused_mvn, gp_predict, stretch_move, tiny_mvn
     from bayesian_inference_tpu_torch.ops._native import build_all
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     kernels = {"diag_chol_inv": blocked_cholesky.KERNEL, "fused_block_mvn": fused_mvn.KERNEL,
-               "block_mvn": tiny_mvn.KERNEL}
+               "block_mvn": tiny_mvn.KERNEL, "gp_predict": gp_predict.KERNEL, "stretch_move": stretch_move.KERNEL}
     build_all(kernels.values())
     print(f"card: {chip_smoke.nvidia_smi_line()}", flush=True)
     data = chip_smoke.production_data()
@@ -42,6 +44,8 @@ def main(names) -> int:
         "full_length": lambda: chip_smoke.phase_full_length(device, kernels, data),
         "parity": lambda: chip_smoke.phase_parity(device, kernels, reuse, data),
         "k4": lambda: chip_smoke.phase_k4(device),
+        "step_kernels": lambda: chip_smoke.phase_step_kernels(device),
+        "programs": lambda: chip_smoke.phase_programs(device, kernels, data),
         "bench": lambda: chip_smoke.phase_bench(device, kernels),
     }
     for name in names:

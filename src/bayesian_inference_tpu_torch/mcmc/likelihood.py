@@ -141,6 +141,8 @@ class EmulatorLikelihood:
 
     def gp_eval(self, theta: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """PC-space means and variances for all groups, concatenated: (W, k_total)."""
+        if len(self.groups) == 1:  # the groups fused into one stack: no concatenation
+            return predict_all_shared(*self.groups[0], theta)
         zs, vs = zip(*(predict_all_shared(cfg, posts, theta) for cfg, posts in self.groups))
         return torch.cat(zs, dim=1), torch.cat(vs, dim=1)
 

@@ -22,7 +22,10 @@ injected, so a test can hand both packages the same numbers); the steps then
 run as device ops with no host round trip. ``run_chunk`` dispatches them one
 op at a time from a Python loop; the runners go through
 ``mcmc/programs.SamplerPrograms`` instead, which on CUDA replays the same
-step (``step_at``) as a captured graph.
+step (``step_at``) as a captured graph. The move itself is
+``ops/stretch_move.py``: three phases around the two ``log_prob_fn`` calls,
+on the card three launches of its kernel, which read their draws from the
+device step counter; on the CPU its plain version, the JAX package's move.
 
 Batched ensembles: P independent samplers (the closure test's validation
 points) advance together. Every state leaf gets a leading P axis, each point
@@ -37,6 +40,8 @@ from typing import Callable, NamedTuple, Sequence
 
 import torch
 
+from bayesian_inference_tpu_torch.ops import stretch_move
+
 LogProbFn = Callable[[torch.Tensor], torch.Tensor]
 STRETCH_A = 2.0
 
@@ -45,30 +50,6 @@ class EnsembleState(NamedTuple):
     coords: torch.Tensor      # (W, d), or (P, W, d)
     log_prob: torch.Tensor    # (W,), or (P, W)
     n_accepted: torch.Tensor  # (W,), or (P, W); int32
-
-
-def _take_walkers(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Walkers of x (..., W, d) or (..., W) at indices idx (..., n), per point."""
-    idx = idx.long()  # injected draws may carry int32 indices
-    if x.dim() == idx.dim():
-        return torch.gather(x, -1, idx)
-    return torch.gather(x, -2, idx[..., None].expand(*idx.shape, x.shape[-1]))
-
-
-def _stretch_half_draws(u, partners, u_acc, x_upd, logp_upd, x_comp, log_prob_fn: LogProbFn, a: float = STRETCH_A):
-    """One half-update from pregenerated draws. Returns (x, logp, accepted)."""
-    d = x_upd.shape[-1]
-    z = ((a - 1.0) * u + 1.0) ** 2 / a
-    x_c = _take_walkers(x_comp, partners)
-    y = x_c + z[..., None] * (x_upd - x_c)
-
-    logp_y = log_prob_fn(y)
-    log_ratio = (d - 1.0) * torch.log(z) + logp_y - logp_upd
-    accept = torch.log(u_acc) < log_ratio
-
-    x_new = torch.where(accept[..., None], y, x_upd)
-    logp_new = torch.where(accept, logp_y, logp_upd)
-    return x_new, logp_new, accept
 
 
 def pregen_rands(n: int, W: int, generator: torch.Generator, dtype: torch.dtype,
@@ -104,32 +85,34 @@ def pregen_rands_batched(
     return {k: torch.stack([r[k] for r in per_point], dim=1) for k in per_point[0]}
 
 
+def _step_at_row(state: EnsembleState, rands: dict[str, torch.Tensor], t: torch.Tensor, thin: int, j: int,
+                 log_prob_fn: LogProbFn, a: float, base_accepted: torch.Tensor, outputs=None) -> EnsembleState:
+    """One full ensemble step from draw row ``t * thin + j``: the move's three
+    phases (ops/stretch_move.py) around the two half-updates' ``log_prob_fn``
+    calls; with ``outputs``, row ``t`` of them written.
+
+    The second half's complementary set is exactly the freshly updated first
+    half, and the updated ensemble is assembled by a gather with the inverse
+    permutation, never by a scatter.
+    """
+    move = stretch_move.propose(state.coords, state.log_prob, rands, t, thin, j, a)
+    move = stretch_move.accept_propose(move, log_prob_fn(move.y), rands, t, thin, j, a)
+    return EnsembleState(*stretch_move.accept_assemble(move, log_prob_fn(move.y), rands, t, thin, j, a,
+                                                       state.n_accepted, base_accepted, outputs))
+
+
+def _index_draws(rands: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The draws with int64 indices (injected draws may carry int32 ones)."""
+    return {k: v.long() if k in stretch_move.INDEX_KEYS else v for k, v in rands.items()}
+
+
 def _step_with_rands(state: EnsembleState, r: dict[str, torch.Tensor], log_prob_fn: LogProbFn,
                      a: float = STRETCH_A) -> EnsembleState:
-    """One full ensemble step from one step's slice of the draws.
-
-    The updated ensemble is assembled by concatenation and a gather with the
-    inverse permutation, never by a scatter: the second half's complementary
-    set is exactly the freshly updated first half.
-    """
-    half = state.coords.shape[-2] // 2
-    x = _take_walkers(state.coords, r["perm"])
-    logp = _take_walkers(state.log_prob, r["perm"])
-
-    def draws(i):
-        return r["u_z"][..., i, :], r["partners"][..., i, :], r["u_acc"][..., i, :]
-
-    x0, lp0, a0 = _stretch_half_draws(
-        *draws(0), x[..., :half, :], logp[..., :half], x[..., half:, :], log_prob_fn, a
-    )
-    x1, lp1, a1 = _stretch_half_draws(*draws(1), x[..., half:, :], logp[..., half:], x0, log_prob_fn, a)
-
-    inv = r["inv"]
-    return EnsembleState(
-        coords=_take_walkers(torch.cat([x0, x1], dim=-2), inv),
-        log_prob=_take_walkers(torch.cat([lp0, lp1], dim=-1), inv),
-        n_accepted=state.n_accepted + _take_walkers(torch.cat([a0, a1], dim=-1), inv).to(torch.int32),
-    )
+    """One full ensemble step from one step's slice of the draws (perm/inv
+    (..., W), u_z/partners/u_acc (..., 2, W // 2))."""
+    rands = {k: v[None].contiguous() for k, v in _index_draws(r).items()}
+    t = torch.zeros(1, dtype=torch.long, device=state.coords.device)
+    return _step_at_row(state, rands, t, 1, 0, log_prob_fn, a, state.n_accepted)
 
 
 def init_state(log_prob_fn: LogProbFn, x0: torch.Tensor) -> EnsembleState:
@@ -180,23 +163,19 @@ def step_at(state: EnsembleState, rands: dict[str, torch.Tensor], outputs, t: to
     ``outputs`` (``chunk_outputs`` layout, with or without the chain) is
     written and the new state returned. The index is a tensor so that the
     eager loop and a captured device program (mcmc/programs.py) run the same
-    ops."""
-    *stored, acc = outputs
+    ops; on the card each step is three launches of the move's kernel around
+    the two ``log_prob_fn`` calls, the last of them writing the row."""
     new = state
     for j in range(thin):
-        row = t if thin == 1 else t * thin + j
-        new = _step_with_rands(new, {k: v.index_select(0, row)[0] for k, v in rands.items()}, log_prob_fn, a)
-    if stored:
-        chain, log_prob = stored
-        chain.index_copy_(0, t, new.coords[None])
-        log_prob.index_copy_(0, t, new.log_prob[None])
-    acc.index_copy_(0, t, (new.n_accepted - state.n_accepted).to(acc.dtype).mean(dim=-1)[None])
+        new = _step_at_row(new, rands, t, thin, j, log_prob_fn, a, state.n_accepted,
+                           outputs if j == thin - 1 else None)
     return new
 
 
 def _run_steps(state: EnsembleState, log_prob_fn: LogProbFn, n_steps: int, rands: dict[str, torch.Tensor],
                a: float, store_chain: bool, thin: int):
     _check_thin(n_steps, thin)
+    rands = _index_draws(rands)
     outputs = chunk_outputs(n_steps // thin, state, store_chain)
     t = torch.zeros(1, dtype=torch.long, device=state.coords.device)
     for _ in range(n_steps // thin):

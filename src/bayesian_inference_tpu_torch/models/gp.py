@@ -20,11 +20,11 @@ from dataclasses import dataclass
 import torch
 
 from bayesian_inference_tpu_torch.ops.blocked_cholesky import chol_inv_batched
+from bayesian_inference_tpu_torch.ops.gp_predict import gp_predict
 from bayesian_inference_tpu_torch.ops.gram import (
     KernelConfig,
     KernelParams,
     cross_covariance,
-    matern_from_sqdist,
     pairwise_sqdiff,
     prior_variance,
     train_gram,
@@ -230,16 +230,8 @@ def predict_all_shared(
     """Means and variances of k stacked GPs at ``theta`` (B, d) -> ((B, k), (B, k)).
 
     The per-dimension squared differences to the shared design are computed
-    once and contracted per GP with its length scales.
+    once and contracted per GP with its length scales: on the card in one
+    launch of the fused predict kernel (ops/gp_predict.py), on the CPU by its
+    plain version.
     """
-    diff = theta[:, None, :] - posts.X[None, :, :]                 # (B, N, d)
-    D2 = diff * diff
-    w = torch.exp(-2.0 * posts.params.log_length_scale)            # (k, d)
-    sq = torch.einsum("bnd,kd->kbn", D2, w)
-    ks = matern_from_sqdist(sq, cfg.nu)                            # (k, B, N)
-    if cfg.with_constant:
-        ks = ks + torch.exp(posts.params.log_constant)[:, None, None]
-    mean = torch.einsum("kbn,kn->bk", ks, posts.alpha)
-    t = ks @ posts.Kinv                                            # (k, B, N)
-    var = posts.prior_var[None, :] - torch.einsum("kbn,kbn->bk", t, ks)
-    return mean, torch.clamp(var, min=0.0)
+    return gp_predict(cfg, posts, theta)

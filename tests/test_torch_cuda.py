@@ -325,6 +325,18 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(device):
         tiny_mvn.block_mvn_loglike(dY, C)
     with pytest.raises(ValueError, match="contiguous"):
         tiny_mvn.block_mvn_loglike(dY.float(), C.float().transpose(-1, -2))
+    from bayesian_inference_tpu_torch.mcmc import stretch
+    from bayesian_inference_tpu_torch.ops import gp_predict as k5
+    from bayesian_inference_tpu_torch.ops import stretch_move as k6
+
+    cfg, post = _gp_stack(k=3, N=20)
+    with pytest.raises(TypeError, match="float32"):
+        k5.gp_predict(cfg, _posterior_on(post, device, torch.float64), torch.zeros((4, 6), dtype=torch.float64,
+                                                                                   device=device))
+    rands = stretch.pregen_rands(2, 8, torch.Generator(device=device).manual_seed(0), torch.float64)
+    x, t = torch.zeros((8, 3), dtype=torch.float64, device=device), torch.zeros(1, dtype=torch.long, device=device)
+    with pytest.raises(ValueError, match="float32"):
+        k6.propose(x, x[:, 0].contiguous(), rands, t, 1, 0, 2.0)
 
 
 def test_wider_blocks_than_the_kernels_take_go_dense_on_the_card(device):
@@ -731,3 +743,196 @@ def test_compile_async_builds_the_captured_program_on_the_card(card_analysis):
             for p in (background, sync)]
     for a, b in zip((*outs[0][0], *outs[0][1]), (*outs[1][0], *outs[1][1])):
         assert torch.equal(a, b)
+
+
+def _gp_stack(k=41, N=195, d=6, seed=11, nu=1.5, with_constant=False):
+    """k stacked Matern GPs (+ white noise) on one random design, by default
+    of the production width, hyperparameters from the fit's range, fitted on
+    the host in float64."""
+    from bayesian_inference_tpu_torch.models import gp
+    from bayesian_inference_tpu_torch.ops.gram import KernelConfig, KernelParams
+
+    rng = np.random.default_rng(seed)
+    X, Y = rng.uniform(0.0, 1.0, (N, d)), rng.normal(size=(k, N))
+    params = KernelParams(torch.tensor(np.log(rng.uniform(0.2, 3.0, (k, d)))),
+                          torch.tensor(np.log(rng.uniform(1e-3, 0.1, k))),
+                          torch.tensor(np.log(rng.uniform(0.5, 2.0, k))))
+    cfg = KernelConfig(nu=nu, with_constant=with_constant)
+    return cfg, gp.posterior_from_params_matmul(cfg, params, torch.tensor(X), torch.tensor(Y), 1e-6)
+
+
+def _posterior_on(post, device, dtype):
+    import dataclasses
+
+    move = lambda x: x.to(device=device, dtype=dtype).contiguous()  # noqa: E731
+    params = dataclasses.replace(post.params, **{f.name: move(getattr(post.params, f.name))
+                                                 for f in dataclasses.fields(post.params)})
+    return dataclasses.replace(post, params=params, X=move(post.X), alpha=move(post.alpha), Kinv=move(post.Kinv),
+                               prior_var=move(post.prior_var), lml=move(post.lml))
+
+
+@pytest.mark.parametrize("B", [50, 100, 1500])
+def test_gp_predict_kernel_matches_float64(device, B):
+    """K5 at the main path's batches (one analysis' half-ensemble, a
+    200-walker run's, the 30-point closure batch's) on 41 PCs x 195 design
+    points: its error against the float64 plain version, max |err| / max
+    |ref| for the means and for the variances, is at most twice the f32
+    plain version's; one launch per call, bit-equal on repeat and to the
+    same walkers in a batch of 50 (a walker's values do not depend on its
+    batch)."""
+    from bayesian_inference_tpu_torch.ops import gp_predict as k5
+
+    cfg, post = _gp_stack()
+    post32, post64 = _posterior_on(post, device, torch.float32), _posterior_on(post, device, torch.float64)
+    theta64 = torch.tensor(np.random.default_rng(B).uniform(0.0, 1.0, (B, 6)), device=device)
+    theta = theta64.float()
+    before = k5.KERNEL.launches
+    mean, var = k5.gp_predict(cfg, post32, theta)
+    torch.cuda.synchronize()
+    assert k5.KERNEL.launches == before + 1
+    plain = k5.gp_predict_plain(cfg, post32, theta)
+    ref = k5.gp_predict_plain(cfg, post64, theta64)
+    for name, got, f32, want in zip(("mean", "var"), (mean, var), plain, ref):
+        assert got.shape == (B, 41) and bool(torch.isfinite(got).all())
+        scale = float(want.abs().max())
+        err, err_plain = (float((x.double() - want).abs().max()) / scale for x in (got, f32))
+        assert err <= 2 * err_plain, (name, err, err_plain)
+    again = k5.gp_predict(cfg, post32, theta)
+    assert torch.equal(again[0], mean) and torch.equal(again[1], var)
+    first = k5.gp_predict(cfg, post32, theta[:50].contiguous())
+    assert torch.equal(first[0], mean[:50]) and torch.equal(first[1], var[:50])
+
+
+@pytest.mark.parametrize("nu,with_constant,N,d,B", [(0.5, False, 300, 3, 37), (1.5, True, 20, 6, 200),
+                                                    (2.5, False, 195, 8, 700), (None, True, 257, 6, 50),
+                                                    (1.5, False, 700, 6, 9), (1.5, False, 1, 6, 3)])
+def test_gp_predict_kernel_for_every_kernel_and_design_size(device, nu, with_constant, N, d, B):
+    """K5 for every Matern order and RBF, with and without the constant
+    kernel, at designs smaller than a Kinv panel, wider than one column chunk
+    (256), not a multiple of either, from one point to 700, at each walker
+    tile: within twice the f32 plain version's error of float64, bit-equal
+    on repeat."""
+    from bayesian_inference_tpu_torch.ops import gp_predict as k5
+
+    cfg, post = _gp_stack(k=5, N=N, d=d, seed=N + B, nu=nu, with_constant=with_constant)
+    post32, post64 = _posterior_on(post, device, torch.float32), _posterior_on(post, device, torch.float64)
+    theta64 = torch.tensor(np.random.default_rng(B).uniform(-0.1, 1.1, (B, d)), device=device)
+    got = k5.gp_predict(cfg, post32, theta64.float())
+    plain = k5.gp_predict_plain(cfg, post32, theta64.float())
+    ref = k5.gp_predict_plain(cfg, post64, theta64)
+    eps = float(torch.finfo(torch.float32).eps)
+    for name, x, f32, want in zip(("mean", "var"), got, plain, ref):
+        assert x.shape == (B, 5) and bool(torch.isfinite(x).all())
+        scale = float(want.abs().max())
+        err, err_plain = (float((y.double() - want).abs().max()) / scale for y in (x, f32))
+        # At a few design points the plain version's error can be one rounding.
+        assert err <= max(2 * err_plain, 4 * eps), (name, err, err_plain)
+    again = k5.gp_predict(cfg, post32, theta64.float())
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+def _box_gaussian(d, device):
+    lo, hi = torch.zeros(d, device=device), torch.ones(d, device=device)
+
+    def fn(x):
+        inside = torch.all((x > lo) & (x < hi), dim=-1)
+        r = (x - 0.4) / 0.15
+        return torch.where(inside, -0.5 * (r * r).sum(-1), -torch.inf)
+
+    return fn
+
+
+def _plain_chunk(state, fn, n, rands, a):
+    """``run_chunk`` through the move's plain phases, on the card."""
+    from bayesian_inference_tpu_torch.mcmc import stretch
+    from bayesian_inference_tpu_torch.ops import stretch_move as k6
+
+    outputs = stretch.chunk_outputs(n, state)
+    t = torch.zeros(1, dtype=torch.long, device=state.coords.device)
+    for _ in range(n):
+        move = k6.propose_plain(state.coords, state.log_prob, rands, t, 1, 0, a)
+        move = k6.accept_propose_plain(move, fn(move.y), rands, t, 1, 0, a)
+        state = stretch.EnsembleState(*k6.accept_assemble_plain(move, fn(move.y), rands, t, 1, 0, a, state.n_accepted,
+                                                                state.n_accepted, outputs))
+        t += 1
+    return state, outputs
+
+
+@pytest.mark.parametrize("a", [2.0, 1.7])
+@pytest.mark.parametrize("n_points", [None, 30])
+def test_stretch_move_kernel_matches_plain(device, n_points, a):
+    """K6 (three launches per step) against its plain version on the same
+    states, draws and log-prob function, 100 walkers in 6 dimensions, one
+    ensemble and 30: over 50 steps the chain, log-probs, final state and
+    accept counts are bit-equal (the kernel rounds each operation as
+    torch's elementwise calls do), the mean acceptance within one ulp."""
+    from bayesian_inference_tpu_torch.mcmc import stretch
+    from bayesian_inference_tpu_torch.ops import stretch_move as k6
+
+    W, d, n = 100, 6, 50
+    lead = (n_points,) if n_points else ()
+    gens = [torch.Generator(device=device).manual_seed(40 + i) for i in range(n_points or 1)]
+    x0 = 0.1 + 0.8 * torch.rand((*lead, W, d), generator=gens[0], device=device)
+    fn = _box_gaussian(d, device)
+    rands = (stretch.pregen_rands_batched(n, W, gens, torch.float32) if n_points
+             else stretch.pregen_rands(n, W, gens[0], torch.float32))
+    state0 = stretch.init_state(fn, x0)
+    before = k6.KERNEL.launches
+    chunk = stretch.run_chunk_batched if n_points else stretch.run_chunk
+    final, (chain, log_prob, acc) = chunk(state0, fn, n, rands=rands, a=a)
+    torch.cuda.synchronize()
+    assert k6.KERNEL.launches == before + 3 * n
+    ref_final, (ref_chain, ref_log_prob, ref_acc) = _plain_chunk(state0, fn, n, rands, a)
+    for got, want in zip((*final, chain, log_prob), (*ref_final, ref_chain, ref_log_prob)):
+        assert torch.equal(got, want)
+    assert float((acc - ref_acc).abs().max()) <= float(torch.finfo(torch.float32).eps) * float(ref_acc.abs().max())
+    assert 0 < int(final.n_accepted.sum()) < n * W * (n_points or 1)
+
+
+@pytest.mark.parametrize("n_points", [None, 30], ids=["analysis", "closure-batch"])
+def test_program_with_the_step_kernels_equals_the_eager_loop_over_200_steps(card_analysis, n_points):
+    """Block mode at 100 walkers, one analysis and a 30-point batch: the
+    captured program and the eager loop, both running K5, K6 and K1, agree
+    bit for bit over 200 steps, and the replays count K5 2, K6 3 and K1 2
+    launches per step."""
+    from bayesian_inference_tpu_torch.io import observables as obs_io
+    from bayesian_inference_tpu_torch.mcmc import likelihood as lik
+    from bayesian_inference_tpu_torch.mcmc import stretch
+    from bayesian_inference_tpu_torch.mcmc.programs import SamplerPrograms
+    from bayesian_inference_tpu_torch.models.emulator import fit_emulators
+    from bayesian_inference_tpu_torch.ops import gp_predict as k5
+    from bayesian_inference_tpu_torch.ops import stretch_move as k6
+
+    emu, mcmc, observables = card_analysis
+    device = torch.device("cuda", 0)
+    artifacts = fit_emulators(emu, n_opt_iters=20, device=device, observables=observables, write=False)
+    box = mcmc.parameterization_spec()
+    kw = dict(observable_filter=emu.observable_filter, observables=observables)
+    exp = obs_io.data_array_from_h5(mcmc.output_dir, mcmc.observables_filename, **kw)
+    like = lik.build_likelihood(emu, artifacts, exp, box["min"], box["max"], device=device, observables=observables)
+    W, ndim, n, dt = 100, len(box["min"]), 200, like.theta_min.dtype
+    lead = ()
+    if n_points:
+        ys = np.stack([obs_io.data_array_from_h5(mcmc.output_dir, mcmc.observables_filename, pseudodata_index=i,
+                                                 rng=np.random.default_rng(i), **kw)["y"] for i in range(n_points)])
+        d0 = tuple(torch.tensor(x, dtype=dt, device=device)
+                   for x in lik.pad_residual_offsets(emu, artifacts, ys, observables))
+        like, lead = like.with_d0(d0), (n_points,)
+    gens = [torch.Generator(device=device).manual_seed(60 + i) for i in range(n_points or 1)]
+    x0 = like.theta_min + (like.theta_max - like.theta_min) * torch.rand((*lead, W, ndim), generator=gens[0],
+                                                                         dtype=dt, device=device)
+    rands = (stretch.pregen_rands_batched(n, W, gens, dt) if n_points else stretch.pregen_rands(n, W, gens[0], dt))
+    fn = like.log_posterior
+    state0 = stretch.init_state(fn, x0)
+    eager = (stretch.run_chunk_batched if n_points else stretch.run_chunk)(state0, fn, n, rands=rands)
+    programs = SamplerPrograms(like, W, ndim, [n], n_points=n_points)
+    programs.compile()
+    assert programs.captured
+    kernels = (k5.KERNEL, k6.KERNEL, fused_mvn.KERNEL)
+    before = [k.launches for k in kernels]
+    out = programs.chunk(state0, like, n, rands=rands)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [2 * n, 3 * n, 2 * n]
+    for a, b in zip((*out[0], *out[1]), (*eager[0], *eager[1])):
+        assert torch.equal(a, b)
+    assert 0 < int(out[0].n_accepted.sum()) < n * W * (n_points or 1)
