@@ -1,0 +1,102 @@
+"""One step of the affine-invariant stretch move (Goodman & Weare 2010,
+emcee's RedBlueMove with a shuffled split), in float64, from the step's draws.
+
+The ensemble, permuted by ``perm``, is split into halves. Each walker x_k of
+the first half gets a partner x_c from the second half (``partners``), a
+stretch z = ((a - 1) u + 1)^2 / a, the proposal y = x_c + z (x_k - x_c), and
+moves there when log u_acc < (d - 1) log z + log p(y) - log p(x_k). The
+second half then moves the same way against the updated first half.
+
+The reference follows the program's chain one step at a time from the
+program's own states: each half-step starts from the positions the program
+recorded and is judged by its own proposal and its own float64 decision.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+F64 = torch.float64
+
+
+def proposals(x_prev: np.ndarray, x_next: np.ndarray, draws: dict[str, np.ndarray], t: int,
+              a: float = 2.0) -> dict:
+    """The points row ``t`` of the draws proposes, from the program's states
+    ``x_prev`` (W, d) before the step and ``x_next`` after it: the walkers in
+    permuted order ``xp``, the program's result ``xn`` in that order, and per
+    half its stretch ``z`` and proposals ``y``."""
+    h = x_prev.shape[0] // 2
+    perm = np.asarray(draws["perm"][t], np.int64)
+    xp = torch.tensor(x_prev[perm], dtype=F64)
+    xn = torch.tensor(x_next[perm], dtype=F64)
+    out = {"xp": xp, "xn": xn, "z": [], "y": []}
+    for half in (0, 1):
+        upd = xp[:h] if half == 0 else xp[h:]
+        comp = xp[h:] if half == 0 else xn[:h]           # the second half moves against the updated first
+        u = torch.tensor(np.asarray(draws["u_z"][t, half], np.float64))
+        z = ((a - 1.0) * u + 1.0) ** 2 / a
+        xc = comp[torch.tensor(np.asarray(draws["partners"][t, half], np.int64))]
+        out["z"].append(z)
+        out["y"].append(xc + z[:, None] * (upd - xc))
+    return out
+
+
+def judge_step(p: dict, lp_cur: torch.Tensor, lp_y: list[torch.Tensor], draws: dict[str, np.ndarray], t: int,
+               width: np.ndarray, margin: float = 0.05, pos_tol: float = 1e-4) -> dict:
+    """Judge one step given the reference's log-posteriors of the permuted
+    walkers (``lp_cur``, (W,)) and of each half's proposals (``lp_y``).
+
+    Returns the decisions checked; the mismatches: decisions that differ
+    from the reference's where its log ratio lies more than ``margin`` from
+    log u_acc, and moves to a point more than ``pos_tol`` box widths
+    (``width`` (d,)) from the reference's proposal; and the largest such
+    distance of a move both took."""
+    xp, xn = p["xp"], p["xn"]
+    W, d = xp.shape
+    h = W // 2
+    mismatches, pos_gap = 0, 0.0
+    for half in (0, 1):
+        sl = slice(half * h, (half + 1) * h)
+        z, y = p["z"][half], p["y"][half]
+        ratio = (d - 1.0) * torch.log(z) + lp_y[half] - lp_cur[sl]
+        log_u = torch.log(torch.tensor(np.asarray(draws["u_acc"][t, half], np.float64)))
+        accept_ref = log_u < ratio
+        moved = torch.any(xn[sl] != xp[sl], dim=-1)
+        clear = (ratio - log_u).abs() > margin
+        gap = ((xn[sl] - y).abs() / torch.tensor(width, dtype=F64)).amax(-1)
+        both = moved & accept_ref
+        mismatches += int(((accept_ref != moved) & clear).sum()) + int((both & (gap > pos_tol)).sum())
+        if both.any():
+            pos_gap = max(pos_gap, float(gap[both].max()))
+    return {"decisions": W, "mismatches": mismatches, "position_gap": pos_gap}
+
+
+def off_line(x_prev: torch.Tensor, x_next: torch.Tensor, a: float = 2.0, rtol: float = 64 * 2.0**-23,
+             block: int = 2**24) -> int:
+    """The moves that no stretch move could make, judged without the draws:
+    walkers whose position after a step (``x_next``, (T, W, d), float64) is
+    not their position before it (``x_prev``) and lies on no line through it
+    from another walker, before or after the step, at a stretch z in
+    [1/a, a]. Each coordinate is measured in units of its points' magnitudes
+    (the walker's before and after, the other's), in which the program's
+    float32 proposal x_c + z (x - x_c) is off its line by at most 2 a
+    roundings; z is fitted in those units, and ``rtol`` is the tolerance
+    there. Rows are taken ``block`` elements at a time. A count."""
+    T, W, d = x_prev.shape
+    not_self = ~torch.eye(W, dtype=torch.bool, device=x_prev.device).repeat(1, 2)      # (W, 2W)
+    lo, hi = (1.0 - 1e-6) / a, a * (1.0 + 1e-6)
+    rows = max(1, block // (2 * W * W * d))
+    count = 0
+    for s in range(0, T, rows):
+        xp, xn = x_prev[s:s + rows], x_next[s:s + rows]
+        moved = torch.any(xn != xp, dim=-1)                                            # (t, W)
+        cand = torch.cat([xp, xn], dim=1)[:, None]                                     # (t, 1, 2W, d)
+        scale = (cand.abs() + xp[:, :, None].abs() + xn[:, :, None].abs()).clamp_min(torch.finfo(xp.dtype).tiny)
+        v, w = (xp[:, :, None] - cand) / scale, (xn[:, :, None] - cand) / scale        # (t, W, 2W, d)
+        vv = (v * v).sum(-1)
+        z = (v * w).sum(-1) / vv.clamp_min(torch.finfo(v.dtype).tiny)
+        on = torch.all((w - z[..., None] * v).abs() <= rtol, dim=-1)
+        ok = on & (vv > 0) & (z >= lo) & (z <= hi) & not_self
+        count += int((moved & ~ok.any(-1)).sum())
+    return count
