@@ -1130,40 +1130,6 @@ def device_ms_per_step(fn, n_steps: int, top: int = 8) -> tuple[float | None, st
     return busy_us / 1e3 / n_steps, f"{n_kernels:.1f} kernels and copies per step; {kernels}"
 
 
-def graph_node_counts(programs) -> dict[str, int]:
-    """The nodes of a CUDA graph of one program step, by type (kernel,
-    memcpy, memset, other), read through libcuda (``cuGraphGetNodes``)
-    from a capture of the program's step on its own buffers that torch keeps
-    uninstantiated (``keep_graph``); the capture runs and counts nothing and
-    is discarded."""
-    import ctypes
-    from collections import Counter
-
-    from bayesian_inference_tpu_torch.ops import _native
-
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
-    side = torch.cuda.Stream(programs.device)
-    side.wait_stream(torch.cuda.current_stream(programs.device))
-    with _native.captured_launches():
-        with torch.cuda.graph(graph, stream=side):
-            programs._step()
-    torch.cuda.current_stream(programs.device).wait_stream(side)
-    libcuda = ctypes.CDLL("libcuda.so.1")
-    raw = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    check(libcuda.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
-    nodes = (ctypes.c_void_p * n.value)()
-    check(libcuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
-    kinds = Counter()
-    names = {0: "kernel", 1: "memcpy", 2: "memset"}  # CUgraphNodeType
-    for node in nodes:
-        kind = ctypes.c_int(-1)
-        check(libcuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0, "cuGraphNodeGetType failed")
-        kinds[names.get(kind.value, "other")] += 1
-    del graph
-    return {k: kinds[k] for k in ("kernel", "memcpy", "memset", "other")}
-
-
 def same_chunk(a, b) -> dict[str, bool]:
     """Bit equality of two chunk results (final state, (chain, log-probs, acceptance))."""
     (sa, ya), (sb, yb) = a, b
@@ -1256,7 +1222,7 @@ def phase_programs(device, kernels, data: dict) -> dict:
                 if origin == "fitted":
                     del programs, out  # one program alive at a time: the peak below is one program's
             capture_s = programs.compile_seconds
-            nodes = graph_node_counts(programs)
+            nodes = programs.graph_nodes  # read through libcuda at its capture (utils/profiling.graph_nodes)
 
             # In turns: eager, program, program, eager; draws from the
             # generator inside each run, as the runners make them.

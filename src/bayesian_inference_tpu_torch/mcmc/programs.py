@@ -76,14 +76,22 @@ from bayesian_inference_tpu_torch.mcmc.likelihood import MODES, EmulatorLikeliho
 from bayesian_inference_tpu_torch.mcmc.stretch import EnsembleState
 from bayesian_inference_tpu_torch.ops import _native
 from bayesian_inference_tpu_torch.parallel.mesh import Mesh, make_sharded_log_prob, map_tensors, replicate
+from bayesian_inference_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
 WARMUP_STEPS = 3
 
 # Sampler programs built in this process (``compile`` calls; a point-sharded
-# program counts its shares), for ``sampler_program_stats``.
+# program counts its shares), for ``sampler_program_stats``, and the replays
+# of their captured step graphs (one per output row).
 _built = 0
+_replays = 0
+
+
+@profiling.counter_source
+def _program_counts() -> dict[str, int]:
+    return {"captures.sampler": _built, "replays.sampler": _replays}
 
 
 def logp_operand(like: EmulatorLikelihood, x: torch.Tensor) -> torch.Tensor:
@@ -291,6 +299,7 @@ class SamplerPrograms:
         self._loaded: EmulatorLikelihood | None = None
         self._graph = None
         self._launches_per_step: dict = {}
+        self.graph_nodes: dict[str, int] | None = None
         self.compile_seconds: float | None = None
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
@@ -355,10 +364,13 @@ class SamplerPrograms:
         unless the walker batch is sharded over distinct ones."""
         return self.device.type == "cuda" and (self.mesh is None or self.mesh.distinct == 1)
 
+    @profiling.annotate("capture.sampler")
     def compile(self) -> None:
         """On CUDA, warm up and capture the step; on the CPU, and where the
         walker batch is sharded over distinct cards, there is nothing to
-        build. A failure raises."""
+        build. A failure raises. The captured graph's nodes by type go to
+        ``graph_nodes`` and to the open root call's counters
+        (``graph_nodes.sampler.<type>``)."""
         global _built
         t0 = time.perf_counter()
         if self._parts:
@@ -374,10 +386,15 @@ class SamplerPrograms:
             torch.cuda.current_stream(self.device).wait_stream(side)
             torch.cuda.synchronize(self.device)
             self._t.zero_()
-            graph = torch.cuda.CUDAGraph()
+            # Kept uninstantiated until its nodes are read.
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
             with _native.captured_launches() as record:
                 with torch.cuda.graph(graph, stream=side):
                     self._step()
+            self.graph_nodes = profiling.graph_nodes(graph)
+            for kind, n in self.graph_nodes.items():
+                profiling.count(f"graph_nodes.sampler.{kind}", n)
+            graph.instantiate()
             self._graph, self._launches_per_step = graph, record
         if not self._parts:
             _built += 1
@@ -521,6 +538,7 @@ class SamplerPrograms:
         Draws come from ``rands`` when given, else from ``generator``: one
         ``torch.Generator``, or with ``n_points`` one per point.
         """
+        global _replays
         self._load(like)
         shape = (self.n_walkers, self.ndim) if self.n_points is None else (self.n_points, self.n_walkers, self.ndim)
         if tuple(state.coords.shape) != shape:
@@ -552,6 +570,7 @@ class SamplerPrograms:
                 for _ in range(rows):
                     self._graph.replay()
                 _native.count_replays(self._launches_per_step, rows)
+                _replays += rows
             else:
                 for _ in range(rows):
                     self._step()

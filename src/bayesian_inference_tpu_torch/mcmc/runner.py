@@ -29,6 +29,14 @@ chain is never concatenated); above it each slab is dropped once it is
 written out and tau comes from the host estimator over the files, a few
 points at a time.
 
+Each call is a root call of ``utils/profiling``: its phases are spans
+(``likelihood_build``, ``programs``, ``burn`` with ``burn.phase1``,
+``burn.resample``, ``burn.phase2``, ``production`` with a ``chunk`` and a
+``download`` per chunk, ``statistics``, ``write``; the closure batch adds
+``build``, ``burn.capture`` and ``outputs``), and ``timings`` is read off
+them. A span that covers device work ends with the device drained where a
+download drains it next anyway.
+
 With a ``mesh`` (parallel/mesh.py) ``run_mcmc`` shards the walker batch of
 each half-step over the mesh's devices and ``run_closure_batch`` the
 validation points, each device advancing its share with its own program.
@@ -44,7 +52,6 @@ from __future__ import annotations
 import logging
 import os
 import pickle
-import time
 from typing import Any, Sequence
 
 import numpy as np
@@ -63,6 +70,7 @@ from bayesian_inference_tpu_torch.mcmc.stretch import EnsembleState
 from bayesian_inference_tpu_torch.models.emulator import resolve_device
 from bayesian_inference_tpu_torch.parallel.mesh import Mesh
 from bayesian_inference_tpu_torch.pipeline.configs import EmulationConfig, MCMCConfig
+from bayesian_inference_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -80,6 +88,10 @@ PSEUDODATA_SEED_OFFSET = 12345
 CLOSURE_SLAB_BYTES = 256 << 20
 CLOSURE_DEVICE_BUDGET_BYTES = 32 << 30
 CLOSURE_STATS_HOST_BYTES = 512 << 20
+
+# The runners' ``timings``: the seconds of these spans of the call, by key.
+TIMED_SPANS = {"build": "build", "burn": "burn", "production": "production", "statistics": "autocorr",
+               "write": "write", "outputs": "write"}
 
 
 def resample_walkers_to_top_positions(chain: np.ndarray, log_prob: np.ndarray, n_walkers: int) -> np.ndarray:
@@ -306,7 +318,9 @@ def _run_production(state, advance, generators, n_total: int, checkpoint_every: 
     and the chunk's chain. Returns (final state, the production chain as the
     list of its time-axis slabs -- the chunks' device tensors, a resumed
     prefix as host arrays -- and on the host the chain, log-probs and
-    per-step mean acceptance), the resumed prefix included.
+    per-step mean acceptance), the resumed prefix included. Each chunk is a
+    ``chunk`` span that ends with the device drained, and its slab's
+    download a ``download`` span.
     """
     steps_done = records[-1]["steps_done"] if records else 0
     host = [{k: r[k] for k in ("chain", "chain_log_prob", "acceptance_trace")} for r in records]
@@ -315,13 +329,16 @@ def _run_production(state, advance, generators, n_total: int, checkpoint_every: 
     try:
         for n in _chunk_sizes(n_total, steps_done, checkpoint_every):
             rands = None if injected is None else {k: v[steps_done:steps_done + n] for k, v in injected.items()}
-            state, (chain_c, logp_c, acc_c) = advance(state, n, rands)
-            if not warmed:  # the host is free while the device runs the first chunk
-                stats.warm_fft_plans(n_total)
-                warmed = True
+            with profiling.annotate("chunk"):
+                state, (chain_c, logp_c, acc_c) = advance(state, n, rands)
+                if not warmed:  # the host is free while the device runs the first chunk
+                    stats.warm_fft_plans(n_total)
+                    warmed = True
+                profiling.drain(chain_c.device)
             slabs.append(chain_c)
-            chunk = {"chain": chain_c.cpu().numpy(), "chain_log_prob": logp_c.cpu().numpy(),
-                     "acceptance_trace": acc_c.cpu().numpy()}
+            with profiling.annotate("download"):
+                chunk = {"chain": chain_c.cpu().numpy(), "chain_log_prob": logp_c.cpu().numpy(),
+                         "acceptance_trace": acc_c.cpu().numpy()}
             host.append(chunk)
             steps_done += n
             if ckpt is not None:
@@ -338,6 +355,7 @@ def _run_production(state, advance, generators, n_total: int, checkpoint_every: 
     return state, slabs, joined("chain"), joined("chain_log_prob"), joined("acceptance_trace")
 
 
+@profiling.annotate("run_mcmc")
 def run_mcmc(
     config: MCMCConfig,
     seed: int = 0,
@@ -392,8 +410,10 @@ def run_mcmc(
     a prewarmed handle built for another mesh is dropped with the warning.
 
     Besides the mcmc.h5 contents, the result holds ``burn_log_prob``
-    (n_burn_steps, W), per-phase ``timings`` and ``programs_captured`` (whether
-    the chunks replayed captured graphs).
+    (n_burn_steps, W), per-phase ``timings`` (seconds of the call's spans
+    ``burn``, ``production``, ``statistics`` as ``autocorr``, and ``write``;
+    see ``utils/profiling``) and ``programs_captured`` (whether the chunks
+    replayed captured graphs).
     """
     mode = mode or config.likelihood_mode
     param_spec = config.parameterization_spec()
@@ -411,22 +431,22 @@ def run_mcmc(
             observable_filter=emulation_config.observable_filter, observables=observables,
         )
 
-    t = time.perf_counter()
-    like = build_likelihood(
-        emulation_config, emulation_results, experimental_results,
-        theta_min=theta_min, theta_max=theta_max, mode=mode,
-        device=device, dtype=dtype, observables=observables,
-    )
-    logger.info(f"likelihood build ({mode}): {time.perf_counter() - t:.2f}s")
+    with profiling.annotate("likelihood_build"):
+        like = build_likelihood(
+            emulation_config, emulation_results, experimental_results,
+            theta_min=theta_min, theta_max=theta_max, mode=mode,
+            device=device, dtype=dtype, observables=observables,
+        )
     dt = like.theta_min.dtype
     gen = torch.Generator(device=device).manual_seed(seed)
-    programs = _programs_for(programs, like, config, ndim, chunk_sizes_for_config(config, checkpoint_every), mesh=mesh)
+    with profiling.annotate("programs"):
+        programs = _programs_for(programs, like, config, ndim, chunk_sizes_for_config(config, checkpoint_every),
+                                 mesh=mesh)
     if mesh is not None:
         logger.info(f"walker batch sharded over {mesh.size} mesh devices: {programs.how()}")
     W = config.n_walkers
     n_total = config.n_sampling_steps
     phase_draws = _draws_on(draws, device)
-    timings: dict[str, float] = {}
 
     def on_device(x: np.ndarray) -> torch.Tensor:
         return torch.tensor(x, dtype=dt, device=device)
@@ -444,18 +464,22 @@ def run_mcmc(
         nburn1 = config.n_burn_steps - nburn0
 
         logger.info(f"Burn-in phase 1: {W} walkers x {nburn0} steps")
-        t = time.perf_counter()
-        _, (chain1, logp1, _) = programs.chunk(
-            programs.init(like, x0), like, nburn0, generator=gen, rands=phase_draws("burn", 0)
-        )
-        logp1 = logp1.cpu().numpy()
-        x_top = resample_walkers_to_top_positions(chain1.cpu().numpy(), logp1, W)
-        logger.info("Resampled walker positions; burn-in phase 2")
-        state, (_, logp2, _) = programs.chunk(
-            programs.init(like, on_device(x_top)), like, nburn1, generator=gen, rands=phase_draws("burn", 1)
-        )
-        burn_log_prob = np.concatenate([logp1, logp2.cpu().numpy()])
-        timings["burn"] = time.perf_counter() - t
+        with profiling.annotate("burn"):
+            with profiling.annotate("burn.phase1"):
+                _, (chain1, logp1, _) = programs.chunk(
+                    programs.init(like, x0), like, nburn0, generator=gen, rands=phase_draws("burn", 0)
+                )
+                profiling.drain(device)
+            with profiling.annotate("burn.resample"):
+                logp1 = logp1.cpu().numpy()
+                x_top = resample_walkers_to_top_positions(chain1.cpu().numpy(), logp1, W)
+            logger.info("Resampled walker positions; burn-in phase 2")
+            with profiling.annotate("burn.phase2"):
+                state, (_, logp2, _) = programs.chunk(
+                    programs.init(like, on_device(x_top)), like, nburn1, generator=gen, rands=phase_draws("burn", 1)
+                )
+                profiling.drain(device)
+            burn_log_prob = np.concatenate([logp1, logp2.cpu().numpy()])
         state = programs.init(like, state.coords)
         if ckpt is not None:
             ckpt.start({"burn_log_prob": burn_log_prob})
@@ -464,16 +488,15 @@ def run_mcmc(
         state = _restored_state(records[-1], [gen], dt, device)
 
     logger.info(f"Production: {n_total} steps" + (f", checkpoint every {checkpoint_every}" if ckpt else ""))
-    t = time.perf_counter()
 
     def advance(state, n, rands):
         return programs.chunk(state, like, n, generator=gen, rands=rands)
 
-    state, slabs, chain, log_prob, acc_trace = _run_production(
-        state, advance, [gen], n_total, checkpoint_every, ckpt, records, phase_draws("production"),
-    )
-    acceptance_fraction = state.n_accepted.cpu().numpy().astype(float) / n_total
-    timings["production"] = time.perf_counter() - t
+    with profiling.annotate("production"):
+        state, slabs, chain, log_prob, acc_trace = _run_production(
+            state, advance, [gen], n_total, checkpoint_every, ckpt, records, phase_draws("production"),
+        )
+        acceptance_fraction = state.n_accepted.cpu().numpy().astype(float) / n_total
     _log_acceptance_cadence(config, acc_trace)
     af = acceptance_fraction
     logger.info(
@@ -481,23 +504,24 @@ def run_mcmc(
     )
 
     output: dict[str, Any] = {"chain": chain, "acceptance_fraction": acceptance_fraction, "log_prob": log_prob}
-    t = time.perf_counter()
     mean_power = None
-    if device.type == "cuda":
-        mean_power = stats.device_mean_power(slabs)
-        output["split_rhat"] = stats.device_split_rhat(slabs)
-    else:
-        output["split_rhat"] = stats.split_rhat(chain)
-    del slabs
-    try:
-        output["autocorrelation_time"] = stats.integrated_time(chain, mean_power=mean_power)
-    except stats.AutocorrError as e:
-        output["autocorrelation_time"] = None
-        logger.info(f"Could not compute autocorrelation time: {e}")
+    with profiling.annotate("statistics"):
+        if device.type == "cuda":
+            with profiling.annotate("statistics.device"):
+                mean_power = stats.device_mean_power(slabs)
+                output["split_rhat"] = stats.device_split_rhat(slabs)
+        del slabs
+        with profiling.annotate("statistics.host"):
+            if mean_power is None:
+                output["split_rhat"] = stats.split_rhat(chain)
+            try:
+                output["autocorrelation_time"] = stats.integrated_time(chain, mean_power=mean_power)
+            except stats.AutocorrError as e:
+                output["autocorrelation_time"] = None
+                logger.info(f"Could not compute autocorrelation time: {e}")
     if mean_power is not None:
         output["mean_power"], output["mean_power_nfft"] = mean_power[0], int(mean_power[1])
-    timings["autocorr"] = time.perf_counter() - t
-    logger.info(f"autocorrelation estimate: {timings['autocorr']:.2f}s; split-Rhat max {output['split_rhat'].max():.4f}")
+    logger.info(f"split-Rhat max {output['split_rhat'].max():.4f}")
 
     if closure_index >= 0:
         output["design_point"] = obs_io.design_array_from_h5(
@@ -505,22 +529,21 @@ def run_mcmc(
         )[closure_index]
         output["experimental_pseudodata"] = experimental_results
 
-    t = time.perf_counter()
-    if write:
-        hdf5.write_dict_to_h5(output, config.mcmc_output_dir, "mcmc.h5", verbose=True)
-        archive = EnsembleSamplerArchive(
-            final_coords=state.coords.cpu().numpy(),
-            final_log_prob=state.log_prob.cpu().numpy(),
-            acceptance_fraction=acceptance_fraction,
-            autocorrelation_time=output.get("autocorrelation_time"),
-            seed=seed,
-            mode=mode,
-        )
-        os.makedirs(config.mcmc_output_dir, exist_ok=True)
-        archive.save(config.sampler_outputfile)
-    timings["write"] = time.perf_counter() - t
+    with profiling.annotate("write"):
+        if write:
+            hdf5.write_dict_to_h5(output, config.mcmc_output_dir, "mcmc.h5", verbose=True)
+            archive = EnsembleSamplerArchive(
+                final_coords=state.coords.cpu().numpy(),
+                final_log_prob=state.log_prob.cpu().numpy(),
+                acceptance_fraction=acceptance_fraction,
+                autocorrelation_time=output.get("autocorrelation_time"),
+                seed=seed,
+                mode=mode,
+            )
+            os.makedirs(config.mcmc_output_dir, exist_ok=True)
+            archive.save(config.sampler_outputfile)
     output["burn_log_prob"] = burn_log_prob
-    output["timings"] = timings
+    output["timings"] = profiling.child_seconds(TIMED_SPANS)
     output["programs_captured"] = programs.captured
     return output
 
@@ -568,6 +591,7 @@ def _trim_streamed_chains(cfgs: dict[int, MCMCConfig], steps_done: int, shape_ta
             )
 
 
+@profiling.annotate("run_closure_batch")
 def run_closure_batch(
     config: MCMCConfig,
     closure_indices: Sequence[int],
@@ -620,7 +644,9 @@ def run_closure_batch(
     estimator, a few points at a time. Returns {i: per-point output}; each
     holds the chain and log-probs when ``return_chains``, the point's final
     walker positions and log-probs (``final_coords``, ``final_log_prob``), and
-    the batch's ``timings``.
+    the batch's ``timings`` (seconds of the call's spans ``build``, ``burn``,
+    ``production``, ``statistics`` as ``autocorr``, and ``outputs`` as
+    ``write``).
 
     ``checkpoint_every``: as in ``run_mcmc``, for the whole batch, with one
     generator state per point in each record and the point indices and the
@@ -652,41 +678,43 @@ def run_closure_batch(
     device = _mesh_device(device, mesh)
 
     emulation_config, emulation_results, observables = _analysis_inputs(config, emulation_results, observables)
-    timings: dict[str, float] = {}
-    t = time.perf_counter()
-    exp_real = obs_io.data_array_from_h5(
-        config.output_dir, config.observables_filename,
-        observable_filter=emulation_config.observable_filter, observables=observables,
-    )
-    like = build_likelihood(
-        emulation_config, emulation_results, exp_real, theta_min=theta_min, theta_max=theta_max,
-        mode=mode, device=device, dtype=dtype, observables=observables,
-    )
-    dt = like.theta_min.dtype
-    np_dt = np.dtype(str(dt).removeprefix("torch."))
-
-    def on_device(x: np.ndarray) -> torch.Tensor:
-        return torch.tensor(x, dtype=dt, device=device)
 
     def padded(x: np.ndarray) -> np.ndarray:
         """The per-point array with the last point repeated for the mesh padding."""
         return np.concatenate([x, np.repeat(x[-1:], n_pad, axis=0)]) if n_pad else x
 
-    pseudodata = [_pseudodata(config, emulation_config, observables, i, seed + i) for i in indices]
-    y_batch = padded(np.stack([p["y"] for p in pseudodata]))
-    if mode == "block":
-        d0 = tuple(on_device(d) for d in pad_residual_offsets(emulation_config, emulation_results, y_batch, observables))
-    else:
-        d0 = on_device(residual_offsets_flat(emulation_config, emulation_results, y_batch, observables))
-    like = like.with_d0(d0)  # log_posterior: (P, Wh, d) -> (P, Wh)
-    timings["build"] = time.perf_counter() - t
+    with profiling.annotate("build"):
+        exp_real = obs_io.data_array_from_h5(
+            config.output_dir, config.observables_filename,
+            observable_filter=emulation_config.observable_filter, observables=observables,
+        )
+        with profiling.annotate("likelihood_build"):
+            like = build_likelihood(
+                emulation_config, emulation_results, exp_real, theta_min=theta_min, theta_max=theta_max,
+                mode=mode, device=device, dtype=dtype, observables=observables,
+            )
+        dt = like.theta_min.dtype
+        np_dt = np.dtype(str(dt).removeprefix("torch."))
+
+        def on_device(x: np.ndarray) -> torch.Tensor:
+            return torch.tensor(x, dtype=dt, device=device)
+
+        pseudodata = [_pseudodata(config, emulation_config, observables, i, seed + i) for i in indices]
+        y_batch = padded(np.stack([p["y"] for p in pseudodata]))
+        if mode == "block":
+            d0 = tuple(on_device(d) for d in pad_residual_offsets(emulation_config, emulation_results, y_batch,
+                                                                  observables))
+        else:
+            d0 = on_device(residual_offsets_flat(emulation_config, emulation_results, y_batch, observables))
+        like = like.with_d0(d0)  # log_posterior: (P, Wh, d) -> (P, Wh)
 
     n_total = config.n_sampling_steps
     nburn0 = config.n_burn_steps // 2
     nburn1 = config.n_burn_steps - nburn0
     chunk = _closure_dispatch_chunk(n_total, P_all, W, ndim, np_dt.itemsize, dispatch_chunk, checkpoint_every)
-    programs = _programs_for(programs, like, config, ndim, [nburn0, *_chunk_sizes(n_total, 0, chunk)],
-                             n_points=P_all, mesh=mesh)
+    with profiling.annotate("programs"):
+        programs = _programs_for(programs, like, config, ndim, [nburn0, *_chunk_sizes(n_total, 0, chunk)],
+                                 n_points=P_all, mesh=mesh)
 
     gens = [torch.Generator(device=device).manual_seed(seed + i) for i in indices + indices[-1:] * n_pad]
     phase_draws = _draws_on(draws, device)
@@ -708,20 +736,27 @@ def run_closure_batch(
             )
         else:
             x0 = on_device(padded(np.asarray(draws["x0"])))
-        t = time.perf_counter()
-        _, (chain1, logp1, _) = programs.chunk(
-            programs.init(like, x0), like, nburn0, generator=gens, rands=phase_draws("burn", 0)
-        )
-        chain1, logp1 = chain1.cpu().numpy(), logp1.cpu().numpy()
-        x_top = np.stack([resample_walkers_to_top_positions(chain1[:, p], logp1[:, p], W) for p in range(P_all)])
-        del chain1, logp1
-        # Phase 2 keeps only its final state: a program without chain buffers.
-        burn2 = _programs_for(None, like, config, ndim, [nburn1], n_points=P_all, mesh=mesh, store_chain=False)
-        states, _ = burn2.chunk(
-            burn2.init(like, on_device(x_top)), like, nburn1, generator=gens, rands=phase_draws("burn", 1)
-        )
-        del burn2
-        timings["burn"] = time.perf_counter() - t
+        with profiling.annotate("burn"):
+            with profiling.annotate("burn.phase1"):
+                _, (chain1, logp1, _) = programs.chunk(
+                    programs.init(like, x0), like, nburn0, generator=gens, rands=phase_draws("burn", 0)
+                )
+                profiling.drain(device)
+            with profiling.annotate("burn.resample"):
+                chain1, logp1 = chain1.cpu().numpy(), logp1.cpu().numpy()
+                x_top = np.stack([resample_walkers_to_top_positions(chain1[:, p], logp1[:, p], W)
+                                  for p in range(P_all)])
+                del chain1, logp1
+            # Phase 2 keeps only its final state: a program without chain buffers.
+            with profiling.annotate("burn.capture"):
+                burn2 = _programs_for(None, like, config, ndim, [nburn1], n_points=P_all, mesh=mesh,
+                                      store_chain=False)
+            with profiling.annotate("burn.phase2"):
+                states, _ = burn2.chunk(
+                    burn2.init(like, on_device(x_top)), like, nburn1, generator=gens, rands=phase_draws("burn", 1)
+                )
+                profiling.drain(device)
+            del burn2
         states = programs.init(like, states.coords)
         for cfg in cfgs.values():  # a fresh run: no streamed chain of an earlier attempt stays
             stale = os.path.join(cfg.mcmc_output_dir, "mcmc.h5")
@@ -739,7 +774,6 @@ def run_closure_batch(
                 raise
 
     # --- production: chunk by chunk; each slab streams out and is dropped --------
-    t = time.perf_counter()
     steps_done = records[-1]["steps_done"] if resumed else 0
     sizes = _chunk_sizes(n_total, steps_done, chunk)
     chain_bytes = n_total * P_all * W * ndim * np_dt.itemsize
@@ -759,41 +793,42 @@ def run_closure_batch(
     host_slabs: list[tuple[np.ndarray, np.ndarray]] = (
         [(r["chain"], r["chain_log_prob"]) for r in records] if hold_host else []
     )
-    try:
-        for n_done, n in enumerate(sizes):
-            rands = None if injected is None else {k: v[steps_done:steps_done + n] for k, v in injected.items()}
-            states, (chain_c, logp_c, _) = programs.chunk(states, like, n, generator=gens, rands=rands)
-            if n_done == 0:
-                stats.warm_fft_plans(n_total)  # the host is free while the device runs the first chunk
-            chain_c, logp_c = chain_c[:, :P], logp_c[:, :P]  # the pad points' outputs end here
-            if keep_slabs:
-                device_slabs.append(chain_c)
-            slab: dict[str, np.ndarray] = {}
-            if download:
-                slab = {"chain": chain_c.cpu().numpy(), "chain_log_prob": logp_c.cpu().numpy()}
-                for p, cfg in enumerate(cfgs.values()):
-                    hdf5.append_time_series(cfg.mcmc_output_dir, "mcmc.h5",
-                                            {"chain": slab["chain"][:, p], "log_prob": slab["chain_log_prob"][:, p]})
-                if hold_host:
-                    host_slabs.append((slab["chain"], slab["chain_log_prob"]))
-            del chain_c, logp_c
-            steps_done += n
+    with profiling.annotate("production"):
+        try:
+            for n_done, n in enumerate(sizes):
+                rands = None if injected is None else {k: v[steps_done:steps_done + n] for k, v in injected.items()}
+                # A chunk whose slab is downloaded next ends with the device drained.
+                with profiling.annotate("chunk"):
+                    states, (chain_c, logp_c, _) = programs.chunk(states, like, n, generator=gens, rands=rands)
+                    if n_done == 0:
+                        stats.warm_fft_plans(n_total)  # the host is free while the device runs the first chunk
+                    chain_c, logp_c = chain_c[:, :P], logp_c[:, :P]  # the pad points' outputs end here
+                    if download:
+                        profiling.drain(device)
+                if keep_slabs:
+                    device_slabs.append(chain_c)
+                slab: dict[str, np.ndarray] = {}
+                if download:
+                    with profiling.annotate("download"):
+                        slab = {"chain": chain_c.cpu().numpy(), "chain_log_prob": logp_c.cpu().numpy()}
+                        for p, cfg in enumerate(cfgs.values()):
+                            hdf5.append_time_series(cfg.mcmc_output_dir, "mcmc.h5",
+                                                    {"chain": slab["chain"][:, p],
+                                                     "log_prob": slab["chain_log_prob"][:, p]})
+                        if hold_host:
+                            host_slabs.append((slab["chain"], slab["chain_log_prob"]))
+                del chain_c, logp_c
+                steps_done += n
+                if ckpt is not None:
+                    ckpt.append({**_checkpoint_record(states, gens, steps_done), **({} if write else slab)})
+                del slab
+        finally:
             if ckpt is not None:
-                ckpt.append({**_checkpoint_record(states, gens, steps_done), **({} if write else slab)})
-            del slab
-    finally:
+                ckpt.close()
         if ckpt is not None:
-            ckpt.close()
-    if ckpt is not None:
-        os.remove(ckpt.path)
-    acceptance = states.n_accepted[:P].cpu().numpy().astype(float) / n_total
-    final_coords, final_log_prob = states.coords[:P].cpu().numpy(), states.log_prob[:P].cpu().numpy()
-    timings["production"] = time.perf_counter() - t
-    n_run = sum(sizes)
-    logger.info(
-        f"closure production ({P}x{n_run}): {timings['production']:.2f}s "
-        f"({P * n_run / max(timings['production'], 1e-9):.0f} point-steps/s), mean acceptance {acceptance.mean():.3f}"
-    )
+            os.remove(ckpt.path)
+        acceptance = states.n_accepted[:P].cpu().numpy().astype(float) / n_total
+        final_coords, final_log_prob = states.coords[:P].cpu().numpy(), states.log_prob[:P].cpu().numpy()
 
     def host_chain(p: int, with_log_prob: bool = True) -> tuple[np.ndarray, np.ndarray | None]:
         """Point p's whole (chain, log-probs) on the host: from the slabs
@@ -808,47 +843,56 @@ def run_closure_batch(
         with h5py.File(os.path.join(cfgs[indices[p]].mcmc_output_dir, "mcmc.h5"), "r") as f:
             return f["chain"][()], (f["log_prob"][()] if with_log_prob else None)
 
-    t = time.perf_counter()
-    if keep_slabs:
-        powers, nfft, rhats = stats.device_closure_stats(device_slabs)
-        del device_slabs
-        tau_rel = [stats.integrated_time_from_power(powers[p], nfft, n_total, out_dtype=np_dt) for p in range(P)]
-    else:
-        # The batched host estimator, over as many points at a time as
-        # CLOSURE_STATS_HOST_BYTES of float64 chain allow.
-        group = max(1, min(P, CLOSURE_STATS_HOST_BYTES // max(n_total * W * (ndim + 1) * 8, 1)))
-        tau_rel, rhats = [], []
-        for g0 in range(0, P, group):
-            chains = [host_chain(p, with_log_prob=False)[0] for p in range(g0, min(P, g0 + group))]
-            tau, reliable = stats.integrated_time_batched(np.stack(chains, axis=1))
-            tau_rel.extend(zip(tau, reliable))
-            rhats.extend(stats.split_rhat(c) for c in chains)
-            del chains
-    timings["autocorr"] = time.perf_counter() - t
+    with profiling.annotate("statistics"):
+        if keep_slabs:
+            with profiling.annotate("statistics.device"):
+                powers, nfft, rhats = stats.device_closure_stats(device_slabs)
+            del device_slabs
+            with profiling.annotate("statistics.host"):
+                tau_rel = [stats.integrated_time_from_power(powers[p], nfft, n_total, out_dtype=np_dt)
+                           for p in range(P)]
+        else:
+            # The batched host estimator, over as many points at a time as
+            # CLOSURE_STATS_HOST_BYTES of float64 chain allow.
+            with profiling.annotate("statistics.host"):
+                group = max(1, min(P, CLOSURE_STATS_HOST_BYTES // max(n_total * W * (ndim + 1) * 8, 1)))
+                tau_rel, rhats = [], []
+                for g0 in range(0, P, group):
+                    chains = [host_chain(p, with_log_prob=False)[0] for p in range(g0, min(P, g0 + group))]
+                    tau, reliable = stats.integrated_time_batched(np.stack(chains, axis=1))
+                    tau_rel.extend(zip(tau, reliable))
+                    rhats.extend(stats.split_rhat(c) for c in chains)
+                    del chains
 
-    t = time.perf_counter()
-    design_val = obs_io.design_array_from_h5(
-        config.output_dir, config.observables_filename, validation_set=True, observables=observables
-    )
+    timings: dict[str, float] = {}
     outputs: dict[int, dict[str, Any]] = {}
-    for p, i in enumerate(indices):
-        tau_p, reliable_p = tau_rel[p]
-        if not reliable_p.all():
-            logger.info(f"closure point {i}: chain shorter than 50 tau; no estimate")
-        out_p: dict[str, Any] = {
-            "acceptance_fraction": acceptance[p],
-            "autocorrelation_time": tau_p if reliable_p.all() else None,
-            "split_rhat": rhats[p],
-            "design_point": design_val[i],
-            "experimental_pseudodata": pseudodata[p],
-        }
-        if write:  # the chain and log-probs are in the file already
-            hdf5.write_dict_to_h5(out_p, cfgs[i].mcmc_output_dir, "mcmc.h5", verbose=False)
-        if return_chains:
-            out_p["chain"], out_p["log_prob"] = host_chain(p)
-        # not part of mcmc.h5, whose keys stay the sequential runner's
-        out_p["final_coords"], out_p["final_log_prob"] = final_coords[p], final_log_prob[p]
-        out_p["timings"] = timings
-        outputs[i] = out_p
-    timings["write"] = time.perf_counter() - t
+    with profiling.annotate("outputs"):
+        design_val = obs_io.design_array_from_h5(
+            config.output_dir, config.observables_filename, validation_set=True, observables=observables
+        )
+        for p, i in enumerate(indices):
+            tau_p, reliable_p = tau_rel[p]
+            if not reliable_p.all():
+                logger.info(f"closure point {i}: chain shorter than 50 tau; no estimate")
+            out_p: dict[str, Any] = {
+                "acceptance_fraction": acceptance[p],
+                "autocorrelation_time": tau_p if reliable_p.all() else None,
+                "split_rhat": rhats[p],
+                "design_point": design_val[i],
+                "experimental_pseudodata": pseudodata[p],
+            }
+            if write:  # the chain and log-probs are in the file already
+                hdf5.write_dict_to_h5(out_p, cfgs[i].mcmc_output_dir, "mcmc.h5", verbose=False)
+            if return_chains:
+                out_p["chain"], out_p["log_prob"] = host_chain(p)
+            # not part of mcmc.h5, whose keys stay the sequential runner's
+            out_p["final_coords"], out_p["final_log_prob"] = final_coords[p], final_log_prob[p]
+            out_p["timings"] = timings
+            outputs[i] = out_p
+    timings.update(profiling.child_seconds(TIMED_SPANS))
+    n_run = sum(sizes)
+    logger.info(
+        f"closure production ({P}x{n_run}): {timings['production']:.2f}s "
+        f"({P * n_run / max(timings['production'], 1e-9):.0f} point-steps/s), mean acceptance {acceptance.mean():.3f}"
+    )
     return outputs

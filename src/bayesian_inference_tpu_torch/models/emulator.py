@@ -18,7 +18,6 @@ from __future__ import annotations
 import logging
 import os
 import pickle
-import time
 from dataclasses import dataclass
 from typing import Any
 
@@ -31,6 +30,7 @@ from bayesian_inference_tpu_torch.models import pca as pca_mod
 from bayesian_inference_tpu_torch.models.gp import GPPosterior, predict_all_shared
 from bayesian_inference_tpu_torch.ops.gram import KernelConfig, KernelParams
 from bayesian_inference_tpu_torch.pipeline.configs import EmulationConfig, EmulationGroupConfig
+from bayesian_inference_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -158,10 +158,11 @@ def _fit_batch(
     posts = gp_fit.fit_gps(spec, design, Y_t, generator=torch.Generator(device=device).manual_seed(seed))
     artifacts: dict[str, dict[str, Any]] = {}
     offset = 0
-    for n in names:
-        k = preps[n]["n_pc"]
-        artifacts[n] = _artifact_from_fit(group_configs[n], preps[n], _host(posts, slice(offset, offset + k)))
-        offset += k
+    with profiling.annotate("fit.artifacts"):
+        for n in names:
+            k = preps[n]["n_pc"]
+            artifacts[n] = _artifact_from_fit(group_configs[n], preps[n], _host(posts, slice(offset, offset + k)))
+            offset += k
     return artifacts
 
 
@@ -185,6 +186,7 @@ def fit_emulator_group(
     return _fit_batch({name: config}, {name: _prepare_group(config, n_opt_iters, observables)}, seed, device)[name]
 
 
+@profiling.annotate("fit_emulators")
 def fit_emulators(
     emulation_config: EmulationConfig,
     seed: int = 0,
@@ -204,16 +206,15 @@ def fit_emulators(
     None). ``write=False`` keeps the artifacts in memory only.
     """
     device = resolve_device(device)
-    t0 = time.perf_counter()
     pending: dict[str, dict[str, Any]] = {}
     for name, group_config in emulation_config.emulation_groups_config.items():
         if _fit_gate_open(group_config):
-            if observables is None:
-                observables = obs_io.read_observables(group_config.output_dir, group_config.observables_filename)
-            pending[name] = _prepare_group(group_config, n_opt_iters, observables)
+            with profiling.annotate("fit.prepare"):
+                if observables is None:
+                    observables = obs_io.read_observables(group_config.output_dir, group_config.observables_filename)
+                pending[name] = _prepare_group(group_config, n_opt_iters, observables)
     if not pending:
         return {}
-    logger.info(f"fit stage: ingest+PCA prep {time.perf_counter() - t0:.2f}s")
 
     names = list(pending)
     specs = [pending[n]["spec"] for n in names]
@@ -222,13 +223,11 @@ def fit_emulators(
 
     artifacts: dict[str, dict[str, Any]] = {}
     for batch in batches:
-        t0 = time.perf_counter()
         fitted = _fit_batch(emulation_config.emulation_groups_config, {n: pending[n] for n in batch}, seed, device)
         for n, artifact in fitted.items():
             if write:
                 write_emulators(emulation_config.emulation_groups_config[n], artifact)
         artifacts.update(fitted)
-        logger.info(f"fit stage: fit_gps + artifacts {time.perf_counter() - t0:.2f}s")
     return artifacts
 
 

@@ -40,6 +40,7 @@ from bayesian_inference_tpu_torch.models.gp import (
 from bayesian_inference_tpu_torch.ops import _native
 from bayesian_inference_tpu_torch.ops.gram import KernelConfig, KernelParams, pairwise_sqdiff
 from bayesian_inference_tpu_torch.parallel.mesh import Mesh, shard_leading_axis
+from bayesian_inference_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -334,6 +335,7 @@ class FitProgram:
             n_iters: int) -> tuple[torch.Tensor, torch.Tensor]:
         """L-BFGS from each row of ``u0`` (B, P) against the targets ``Y``
         (B, N); returns (best_u, best_neg_lml) in new tensors."""
+        global _replays
         if self.compile_seconds is None:
             raise RuntimeError("FitProgram: call compile() first")
         if tuple(u0.shape) != tuple(self._state[0].shape) or tuple(Y.shape) != tuple(self._Y.shape[1:]):
@@ -351,6 +353,7 @@ class FitProgram:
             for _ in range(n_iters):
                 self._graph.replay()
             _native.count_replays(self._launches_per_iteration, n_iters)
+            _replays += n_iters
         else:
             for _ in range(n_iters):
                 self._step()
@@ -358,7 +361,15 @@ class FitProgram:
 
 
 _PROGRAMS: OrderedDict[tuple, FitProgram] = OrderedDict()
+# Fit programs built in this process, and the replays of their captured
+# iteration graphs (one per L-BFGS iteration).
 _built = 0
+_replays = 0
+
+
+@profiling.counter_source
+def _program_counts() -> dict[str, int]:
+    return {"captures.fit": _built, "replays.fit": _replays}
 
 
 def fit_program(cfg: KernelConfig, alpha_jitter: float, trial_steps: tuple, B: int, N: int, d: int, P: int,
@@ -374,8 +385,9 @@ def fit_program(cfg: KernelConfig, alpha_jitter: float, trial_steps: tuple, B: i
         return program
     while len(_PROGRAMS) >= MAX_FIT_PROGRAMS:
         _PROGRAMS.popitem(last=False)
-    program = FitProgram(*key)
-    program.compile()
+    with profiling.annotate("capture.fit"):
+        program = FitProgram(*key)
+        program.compile()
     _PROGRAMS[key] = program
     _built += 1
     logger.info(
@@ -396,6 +408,7 @@ def clear_fit_programs() -> None:
     _PROGRAMS.clear()
 
 
+@profiling.annotate("fit_gps")
 def fit_gps(
     spec: GPFitSpec,
     X: torch.Tensor,
@@ -466,8 +479,12 @@ def fit_gps(
         return tuple(torch.cat([t.to(dev, non_blocking=True) for t in ts]) for ts in zip(*shares))
 
     def optimize(pool_u: torch.Tensor, pool: int, n_iters: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """``n_iters`` iterations from the (k, pool, P) starting points."""
-        return run_stage(pool_u.reshape(k * pool, P), Yt.repeat_interleave(pool, 0), n_iters)
+        """``n_iters`` iterations from the (k, pool, P) starting points: one
+        stage, its span ending with the device drained."""
+        with profiling.annotate("fit.stage"):
+            out = run_stage(pool_u.reshape(k * pool, P), Yt.repeat_interleave(pool, 0), n_iters)
+            profiling.drain(dev)
+        return out
 
     pool_u, pool = u0, R
     for rung_iters, rung_keep in rungs:

@@ -20,7 +20,8 @@ A CUDA graph replays its captured launches without passing through ``launch``.
 ``captured_launches`` records what a capture recorded per kernel, in all and
 by batch (and takes those recordings back out of the counts: a capture
 launches nothing); ``count_replays`` adds them for every replay, so the
-counts stay the number of times each kernel ran on the card.
+counts stay the number of times each kernel ran on the card. Each root call
+of ``utils/profiling`` keeps its difference of them (``launch_counts``).
 """
 
 from __future__ import annotations
@@ -36,6 +37,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
+
+from bayesian_inference_tpu_torch.utils import profiling
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "bayesian_inference_tpu_torch"
@@ -175,3 +178,16 @@ def check_cuda_operands(name: str, *tensors: torch.Tensor) -> None:
 
 def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@profiling.counter_source
+def launch_counts() -> dict[str, int]:
+    """Kernel launches by kernel (``launches.<source>``), and by batch where a
+    wrapper named it (``launches.<source>.B<batch>``), counted through graph
+    replays."""
+    out = {}
+    for k in KERNELS:
+        out[f"launches.{k.source.stem}"] = k.launches
+        for batch, n in k.launches_by_batch.items():
+            out[f"launches.{k.source.stem}.B{batch}"] = n
+    return out

@@ -297,7 +297,8 @@ def main(argv: list[str] | None = None) -> None:
     )
     parser.add_argument(
         "--profile", type=str, default=None, metavar="TRACE_DIR",
-        help="Write a torch.profiler trace of the run to TRACE_DIR/trace.json",
+        help="Write a torch.profiler trace of the run to TRACE_DIR/trace.json and the device's idle gaps by "
+        "program span to TRACE_DIR/idle_by_span.json",
     )
     parser.add_argument(
         "--device", type=str, default="cuda",

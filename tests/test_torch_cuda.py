@@ -605,6 +605,92 @@ def test_device_trace_records_the_card_kernels(device, tmp_path):
     assert any("diag_chol_inv_kernel" in name for name in kernels), kernels[:20]
 
 
+def _last_call(name):
+    from bayesian_inference_tpu_torch.utils import profiling
+
+    return [c for c in profiling.history() if c["name"] == name][-1]
+
+
+def test_device_trace_puts_the_card_s_idle_gaps_down_to_program_spans(device, tmp_path):
+    """idle_by_span.json on the card: a gap the host spends asleep inside a
+    span, between two kernels, is put down to that span (the profiler's
+    clock mapped onto the recorder's)."""
+    import json
+    import time
+
+    from bayesian_inference_tpu_torch.utils import profiling
+
+    A = torch.tensor(_spd(8, 64), device=device).float()
+    with profiling.device_trace(str(tmp_path)):
+        with profiling.annotate("t_card_root"):
+            bc.diag_chol_inv(A)
+            torch.cuda.synchronize()
+            with profiling.annotate("t_card_sleep"):
+                time.sleep(0.05)
+            bc.diag_chol_inv(A)
+            torch.cuda.synchronize()
+    idle = json.loads((tmp_path / profiling.IDLE_FILE).read_text())
+    assert idle["busy_s"] > 0
+    assert idle["by_span"].get("t_card_root/t_card_sleep", 0.0) >= 0.045, idle["by_span"]
+
+
+def test_recorder_counts_replays_captures_and_step_graph_nodes_on_the_card(card_analysis):
+    """On the card the root calls count what ran: the fit's replayed L-BFGS
+    iterations; a prewarmed program's step graph nodes, equal to those of a
+    second capture of its step read through libcuda; and in ``run_mcmc`` on
+    that program one replay per step run and no capture."""
+    from bayesian_inference_tpu_torch.mcmc import runner
+    from bayesian_inference_tpu_torch.mcmc.programs import prewarm_sampler_programs
+    from bayesian_inference_tpu_torch.models.emulator import fit_emulators
+    from bayesian_inference_tpu_torch.ops import _native
+    from bayesian_inference_tpu_torch.utils import profiling
+
+    emu, mcmc, observables = card_analysis
+    device = torch.device("cuda", 0)
+    artifacts = fit_emulators(emu, n_opt_iters=20, device=device, observables=observables, write=False)
+    assert _last_call("fit_emulators")["counters"]["replays.fit"] == 20
+    programs = prewarm_sampler_programs(mcmc, device=device, observables=observables)
+    counters = _last_call("capture.sampler")["counters"]
+    recorded = {k.rsplit(".", 1)[1]: v for k, v in counters.items() if k.startswith("graph_nodes.sampler.")}
+    assert recorded == programs.graph_nodes and counters["captures.sampler"] == 1
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with _native.captured_launches():
+        with torch.cuda.graph(graph, stream=side):
+            programs._step()
+    torch.cuda.current_stream(device).wait_stream(side)
+    assert profiling.graph_nodes(graph) == recorded
+    assert 0 < recorded["kernel"] <= 32
+    del graph
+
+    runner.run_mcmc(mcmc, seed=3, device=device, emulation_results=artifacts, observables=observables,
+                    write=False, programs=programs)
+    counters = _last_call("run_mcmc")["counters"]
+    assert counters["replays.sampler"] == mcmc.n_burn_steps + mcmc.n_sampling_steps
+    assert counters.get("captures.sampler", 0) == 0
+    assert counters["launches.fused_block_mvn"] == 2 * (mcmc.n_burn_steps + mcmc.n_sampling_steps) + 3
+
+
+def test_a_closure_batch_counts_one_capture_on_the_card(card_analysis):
+    """The closure batch on its prewarmed programs builds one program, phase
+    2's, and replays one step graph per step run."""
+    from bayesian_inference_tpu_torch.mcmc import runner
+    from bayesian_inference_tpu_torch.mcmc.programs import prewarm_sampler_programs
+    from bayesian_inference_tpu_torch.models.emulator import fit_emulators
+
+    emu, mcmc, observables = card_analysis
+    device = torch.device("cuda", 0)
+    artifacts = fit_emulators(emu, n_opt_iters=20, device=device, observables=observables, write=False)
+    indices = [0, 1]
+    programs = prewarm_sampler_programs(mcmc, device=device, observables=observables, n_points=len(indices))
+    runner.run_closure_batch(mcmc, indices, seed=3, device=device, emulation_results=artifacts,
+                             observables=observables, write=False, programs=programs)
+    counters = _last_call("run_closure_batch")["counters"]
+    assert counters["captures.sampler"] == 1
+    assert counters["replays.sampler"] == mcmc.n_burn_steps + mcmc.n_sampling_steps
+
 CARD_OPTION_CASES = {
     "a": {"a": 1.5},
     "fixed_split": {"randomize_split": False},
