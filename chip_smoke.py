@@ -74,8 +74,10 @@ Each kernel's line gives its device time beside its bound (the larger of
 its FP32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s, the H100
 SXM's published peaks) and the share of the bound it reaches: K3 at the
 fit's three batch sizes, K4 at the lowrank batch sizes and at the widest
-capacitance matrix it takes (64 PCs), beside one library call of the same
-function (``MultivariateNormal.log_prob``; K1 has none: it assembles
+capacitance matrix it takes (64 PCs), K4's fused Woodbury entry (the whole
+lowrank likelihood in one launch, ``phase_k4_woodbury``) at 50 walkers and
+30 points x 50 beside the plain chain it replaces, beside one library call
+of the same function (``MultivariateNormal.log_prob``; K1 has none: it assembles
 C = D + U diag(v) U^T inside, and no one call computes that), and the
 sampler step's two kernels beside the route the step took before them
 (``phase_step_kernels``): K5, the fused GP predict, at 50 / 100 / 1,500
@@ -87,8 +89,9 @@ likelihood evaluation is one launch of K1 for all width buckets; each path
 checks that its K1 launches equal its block-mode evaluations, counted as its
 eager evaluations plus two per step a program replayed, that K5 runs once
 per GP predict of those evaluations, and that K6 runs three times per
-ensemble step. The programs phase also reads the nodes of a block-mode
-step's graph and fails above MAX_STEP_NODES.
+ensemble step. In lowrank mode every evaluation is one launch of K4's
+fused entry. The programs phase also reads the nodes of a block-mode and of
+a lowrank step's graph and fails above MAX_STEP_NODES.
 
 One line per phase; the line before the last is the card's name and power
 limit as ``nvidia-smi`` reports them, the line before that the kernels' JSON
@@ -110,6 +113,7 @@ import math
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -145,11 +149,12 @@ STEER_CV_K, STEER_CHECKPOINT_EVERY = 5, 500
 PROGRAM_FIT = {"n_restarts": 4, "n_opt_iters": 20}
 PROGRAM_CHECK_STEPS, PROGRAM_TIMED_STEPS, PROGRAM_EAGER_STEPS = 200, 2000, 500
 PROGRAM_PROFILED_STEPS = 100  # the profiler window that gives the device-busy time per step
-# A block-mode step's graph holds at most this many nodes that run on the
-# card (kernels, copies, sets): the move (K6) three, per evaluation the GP
-# predict (K5) one, K1 two (its launch and its fixed-order sum) and the box
-# prior's few elementwise calls, then the state's copies into the static
-# buffers and the counter's advance.
+# A step's graph holds at most this many nodes that run on the card
+# (kernels, copies, sets): the move (K6) three, per evaluation the GP
+# predict (K5) one, K1 two in block mode (its launch and its fixed-order
+# sum) or K4's fused Woodbury entry one in lowrank mode, and the box prior's
+# few elementwise calls, then the state's copies into the static buffers and
+# the counter's advance.
 MAX_STEP_NODES = 32
 # The fit-programs phase: the schedules held against the eager loop beside
 # the default one, the iterations profiled per stage, and the group whose
@@ -780,6 +785,100 @@ def phase_k4(device, reps: int = 50) -> list[dict]:
     return results
 
 
+def woodbury_operands(B: int, device, n_points: int | None = None, seed: int = 5, k: int = N_PCS,
+                      F: int = 1644):
+    """A float64 Woodbury likelihood of k PCs over F features on the card
+    (per-point offsets for ``n_points`` points), and the GP means and
+    variances of B walkers shaped as the likelihood passes them:
+    (wn, z, v), with z, v (B, k) or (n_points, B / n_points, k)."""
+    from bayesian_inference_tpu_torch.ops import mvn
+
+    rng = np.random.default_rng(seed)
+    colscale = np.exp(-np.arange(k) / 10.0)
+    A = rng.normal(size=(F, F))
+    t = lambda a: torch.tensor(a, dtype=torch.float64, device=device)  # noqa: E731
+    wn = mvn.build_woodbury(t(A @ A.T / F + 0.5 * np.eye(F)), t(rng.normal(size=(F, k)) * colscale * 0.2),
+                            t(rng.normal(size=F)))
+    shape = (B, k)
+    if n_points:
+        wn = wn.with_d0(t(rng.normal(size=(n_points, F))))
+        shape = (n_points, B // n_points, k)
+    return wn, t(rng.normal(size=shape) * colscale), t(rng.uniform(1e-3, 0.1, shape) * colscale)
+
+
+def phase_k4_woodbury(device, reps: int = 50) -> list[dict]:
+    """K4's fused Woodbury entry (``tiny_mvn.fused_woodbury_loglike``, the
+    route of ``mvn.woodbury_loglike`` on the card): the whole lowrank
+    log-likelihood of B walkers from one launch, at one analysis'
+    half-ensemble (B = 50) and the closure batch's 30 points x 50 (per-point
+    b and c0), k = 41 PCs. Held against the float64 plain chain (per walker,
+    error over |quad_M| / 2 + |half_logdet_M|), at most twice the f32 plain
+    chain's error and within K4's bar; NaN only in a walker whose M is not
+    positive definite; bit-equal on repeat; timed against the plain chain it
+    replaces (r and M in plain torch, K4's standalone entry, the rest term by
+    term), in turns."""
+    import dataclasses
+
+    from bayesian_inference_tpu_torch.ops import mvn, tiny_mvn
+
+    results = []
+    for B, n_points in ((50, None), (1500, 30)):
+        wn64, z64, v64 = woodbury_operands(B, device, n_points)
+        wn = dataclasses.replace(wn64, **{f.name: getattr(wn64, f.name).float() for f in dataclasses.fields(wn64)})
+        z, v = z64.float(), v64.float()
+        before, before_b = tiny_mvn.KERNEL.launches, tiny_mvn.KERNEL.launches_by_batch[B]
+        ll = mvn.woodbury_loglike(wn, z, v)
+        torch.cuda.synchronize()
+        launches = (tiny_mvn.KERNEL.launches - before, tiny_mvn.KERNEL.launches_by_batch[B] - before_b)
+        plain = mvn.woodbury_loglike_plain(wn, z, v)
+        ll64 = mvn.woodbury_loglike_plain(wn64, z64, v64, terms=tiny_mvn.mvn_terms_plain)
+        b64 = wn64.b if wn64.b.dim() == 1 else wn64.b[:, None, :]
+        quad64, hld64 = tiny_mvn.mvn_terms_plain(b64 + z64 @ wn64.G, wn64.G + torch.diag_embed(1.0 / v64))
+        scale = 0.5 * quad64.abs() + hld64.abs()
+        rel = float(((ll.double() - ll64).abs() / scale).max())
+        rel_plain = float(((plain.double() - ll64).abs() / scale).max())
+        repeat = bool(torch.equal(ll, mvn.woodbury_loglike(wn, z, v)))
+        v_bad = v.clone()
+        v_bad.view(-1, N_PCS)[3] *= -1
+        ll_bad = mvn.woodbury_loglike(wn, z, v_bad).reshape(-1)
+        others = torch.arange(B, device=device) != 3
+        nan_ok = bool(torch.isnan(ll_bad[3])) and bool(torch.equal(ll_bad[others], ll.reshape(-1)[others]))
+
+        ms, plain_ms = time_pair(lambda: mvn.woodbury_loglike(wn, z, v), lambda: mvn.woodbury_loglike_plain(wn, z, v),
+                                 reps)
+        n, rows = N_PCS, n_points or 1
+        # K4's sweep plus zG (2 n^2) and the rest (~6 n) per walker; z and v
+        # read, G, b and c0 read once, one float written per walker
+        b = bound(B * (n**3 / 3 + 3 * n * n + 6 * n), 4 * (2 * B * n + n * n + rows * (n + 1) + 1 + B))
+        what = f"K4 fused Woodbury B={B}" + (f" ({n_points} points x {B // n_points})" if n_points else "")
+        print(f"{what}, k={n}, f32: one call = {launches[0]} launch(es), {launches[1]} counted at batch {B}; "
+              f"max per-walker err / (|quad_M|/2 + |half_logdet_M|) vs float64: fused {rel:.3g}, plain f32 chain "
+              f"{rel_plain:.3g} (tol {K4_TOL}, and at most twice the plain chain's); non-SPD M -> NaN in that walker "
+              f"only: {nan_ok}; bit-equal on repeat: {repeat}; fused {ms:.4f} ms/call, plain chain {plain_ms:.4f} "
+              f"ms/call ({plain_ms / ms:.2f}x); {bound_text(ms, b)}", flush=True)
+        check(launches == (1, 1), f"{what}: {launches} launches (all, at batch {B}) for one call")
+        check(ll.shape == z.shape[:-1] and bool(torch.isfinite(ll).all()), f"{what}: non-finite or misshapen result")
+        check(rel <= K4_TOL and rel <= 2 * rel_plain,
+              f"{what}: differs from float64 by {rel:.3g} (tol {K4_TOL}; plain f32 chain {rel_plain:.3g})")
+        check(nan_ok, f"{what}: a non-SPD instance must yield NaN without touching its neighbours")
+        check(repeat, f"{what}: repeated launches are not bit-equal")
+        results.append({"max_err": rel, "plain_max_err": rel_plain,
+                        **timed(ms, plain_ms, b, shape=f"B={B}, k={n}" + (f", P={n_points}" if n_points else ""))})
+    return results
+
+
+def check_fused_woodbury(by_batch_before: Counter, launches: dict, path: str) -> None:
+    """Every K4 launch since ``by_batch_before`` (a copy of the kernel's
+    counts by batch) was one of the fused Woodbury entry, which names its
+    batch: the lowrank likelihood took the one-launch route at every
+    evaluation."""
+    from bayesian_inference_tpu_torch.ops import tiny_mvn
+
+    fused = sum((tiny_mvn.KERNEL.launches_by_batch - by_batch_before).values())
+    check(fused == launches["block_mvn"], f"{path}: {fused} fused Woodbury launches of {launches['block_mvn']} K4 "
+                                          "launches")
+
+
 def phase_k4_wide(device, B: int = 50, n: int = 72, reps: int = 50) -> dict:
     """Capacitance matrices wider than K4 takes (72 PCs): on the card the
     wrapper takes the dense path, as JAX does above 48, launching no kernel;
@@ -1262,7 +1361,7 @@ def phase_programs(device, kernels, data: dict) -> dict:
                   f"step FLOPs {points * step_flops / 1e6:.1f} MFLOP -> {tflops:.3f} TFLOP/s, "
                   f"{tflops / peak_tflops:.2%} of the FP32 peak {peak_tflops:.0f} TFLOP/s; device busy (profiler, "
                   f"{PROGRAM_PROFILED_STEPS} steps): {busy_text}; graph nodes per step {nodes} (libcuda), {work_nodes} kernel nodes per step "
-                  f"at {program_ms:.4f} ms/step (at most {MAX_STEP_NODES} in block mode); capture {capture_s:.3f} s; "
+                  f"at {program_ms:.4f} ms/step (at most {MAX_STEP_NODES}); capture {capture_s:.3f} s; "
                   f"peak bytes above the {base_bytes / 1e6:.1f} MB held before (one program with its buffers for "
                   f"{PROGRAM_TIMED_STEPS}-step chunks, its graph's pool, a chunk's draws and outputs) "
                   f"{peak_bytes / 1e6:.1f} MB; card: {smi}",
@@ -1274,7 +1373,7 @@ def phase_programs(device, kernels, data: dict) -> dict:
             for origin, eq in same.items():
                 check(all(eq.values()), f"programs {name}: captured on the {origin} likelihood, not bit-equal to the "
                                         f"eager loop: {eq}")
-            check(mode != "block" or work_nodes <= MAX_STEP_NODES,
+            check(work_nodes <= MAX_STEP_NODES,
                   f"programs {name}: {work_nodes} kernel nodes per step, more than {MAX_STEP_NODES}")
             results[name] = {"eager_ms_per_step": eager_ms, "program_ms_per_step": program_ms, "turns_ms": turns,
                              "kernel_nodes_per_step": work_nodes, "graph_nodes": nodes,
@@ -1619,10 +1718,12 @@ def phase_lowrank(device, kernels, s: dict, n_check: int = 64) -> dict:
 
     config = mcmc_config(N_STEPS)
     reset(kernels)
+    by_batch = Counter(kernels["block_mvn"].launches_by_batch)
     with count_evaluations() as evals:
         out = run_mcmc(config, seed=0, device=device, emulation_results=s["artifacts"],
                        observables=s["observables"], write=False, mode="lowrank")
     launches = counts(kernels)
+    check_fused_woodbury(by_batch, launches, "lowrank")
     logp = out["log_prob"]
     af = float(np.mean(out["acceptance_fraction"]))
     timings = out["timings"]
@@ -1655,10 +1756,13 @@ def phase_closure(device, kernels, s: dict, mode: str, n_check: int = 100) -> di
     indices = list(range(s["observables"]["Design_validation"].shape[0]))
     P = len(indices)
     reset(kernels)
+    by_batch = Counter(kernels["block_mvn"].launches_by_batch)
     with count_evaluations() as evals:
         out = run_closure_batch(config, indices, seed=0, device=device, mode=mode,
                                 emulation_results=s["artifacts"], observables=s["observables"], write=False)
     launches = counts(kernels)
+    if mode == "lowrank":
+        check_fused_woodbury(by_batch, launches, "closure lowrank")
     timings = out[indices[0]]["timings"]
 
     chain = np.stack([out[i]["chain"] for i in indices], axis=1)   # (n, P, W, d)
@@ -2513,6 +2617,7 @@ def main() -> int:
     k1_wide = phase_k1(device, W=N_WALKERS)  # the half-ensemble width of a 200-walker run
     k1_points = phase_k1_points(device)
     k4, *k4_other = phase_k4(device)
+    k4_woodbury = phase_k4_woodbury(device)
     k1_k160, k1_dense = phase_k1_widths(device)
     k4_dense = phase_k4_wide(device)
     (k5, *k5_other), (k6, *k6_other) = phase_step_kernels(device)
@@ -2558,7 +2663,7 @@ def main() -> int:
         {"name": "block_mvn", "route": "cuda",
          "source": "src/bayesian_inference_tpu_torch/csrc/tiny_mvn.cu",
          "replaces": "src/bayesian_inference_tpu/ops/pallas_mvn.py:90",
-         "launches": total["block_mvn"], **k4, "other_shapes": k4_other},
+         "launches": total["block_mvn"], **k4, "other_shapes": k4_other, "woodbury_entry": k4_woodbury},
         {"name": "gp_predict", "route": "cuda",
          "source": "src/bayesian_inference_tpu_torch/csrc/gp_predict.cu",
          "replaces": "src/bayesian_inference_tpu/models/gp.py:252",

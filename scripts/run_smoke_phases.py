@@ -6,8 +6,9 @@
 It builds the kernels, makes the production tables, runs ``phase_slice`` (the
 fit and the short run whose emulators and chain the later phases reuse) and
 then the named phases (``options``, ``closure_slabs``, ``mesh``,
-``full_length``, ``parity``; ``k4``, ``step_kernels``, ``programs`` and
-``bench`` need no slice but run after it), each as ``chip_smoke.py`` runs it.
+``full_length``, ``parity``; ``k4``, ``k4_woodbury``, ``step_kernels``,
+``programs`` and ``bench`` need no slice but run after it), each as
+``chip_smoke.py`` runs it.
 For looking at one phase without paying for the whole script;
 ``chip_smoke.py`` stays the check.
 """
@@ -44,6 +45,7 @@ def main(names) -> int:
         "full_length": lambda: chip_smoke.phase_full_length(device, kernels, data),
         "parity": lambda: chip_smoke.phase_parity(device, kernels, reuse, data),
         "k4": lambda: chip_smoke.phase_k4(device),
+        "k4_woodbury": lambda: chip_smoke.phase_k4_woodbury(device),
         "step_kernels": lambda: chip_smoke.phase_step_kernels(device),
         "programs": lambda: chip_smoke.phase_programs(device, kernels, data),
         "bench": lambda: chip_smoke.phase_bench(device, kernels),

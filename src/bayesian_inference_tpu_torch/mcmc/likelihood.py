@@ -9,7 +9,8 @@ Port of ``bayesian_inference_tpu.mcmc.likelihood``. Two likelihood structures:
   (ops/fused_mvn.py) takes every bucket, one launch per evaluation.
 * ``lowrank``: the full cross-observable covariance D + U diag(v) U^T through
   the Woodbury identity (ops/mvn.py), one launch of the tiny-MVN kernel
-  (ops/tiny_mvn.py) on the k x k capacitance matrices per evaluation.
+  (ops/tiny_mvn.py) per evaluation, which builds and factors the k x k
+  capacitance matrices and returns the log-likelihood.
 
 Uniform box prior: walkers outside [min, max] get -inf (where-masked; the
 likelihood itself is evaluated at box-clipped positions so the Cholesky

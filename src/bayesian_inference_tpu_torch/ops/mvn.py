@@ -11,8 +11,9 @@ with D = Sigma_unexplained + diag(sigma_data^2) constant and dense and U
 (n_features, k) of rank k = n_pc. One Cholesky of D, once, reduces every
 walker's likelihood from O(F^3) to O(k^3): the only per-walker factorisation
 is that of the k x k capacitance matrix M = G + diag(1/v), done by the
-tiny-MVN kernel (ops/tiny_mvn.py). It is an exact identity, not an
-approximation.
+tiny-MVN kernel (ops/tiny_mvn.py), which on the card also builds r and M and
+adds the rest of the likelihood in the same launch. It is an exact
+identity, not an approximation.
 """
 
 from __future__ import annotations
@@ -104,12 +105,28 @@ def build_woodbury(D: torch.Tensor, U: torch.Tensor, d0: torch.Tensor) -> Woodbu
 def woodbury_loglike(wn: WoodburyNormal, z: torch.Tensor, v: torch.Tensor, terms=None) -> torch.Tensor:
     """Loglike of PC-space means and variances z, v (..., k).
 
-    With per-point pieces (b of shape (P, k)), z and v are (P, Wh, k). The
-    capacitance term +1/2 r^T M^-1 r - 1/2 log det M, with r = b + G z and
-    M = G + diag(1/v), is one sweep of the tiny-MVN kernel over all walkers
-    (+quad/2 - half_logdet of (r, M)); the JAX package needs two calls of its
-    kernel for it (2 loglike(0, M) - loglike(r, M)). ``terms``: another
-    function of (r, M) giving (quad, half_logdet) in the kernel's place.
+    With per-point pieces (b of shape (P, k)), z and v are (P, Wh, k). Up to
+    ``tiny_mvn.MAX_NB`` PCs the whole likelihood is one call of
+    ``tiny_mvn.fused_woodbury_loglike``: one launch of the tiny-MVN kernel
+    on the card, which builds r and M itself; on the CPU the plain chain.
+    Wider capacitance matrices, and a caller's own ``terms`` (a function of
+    (r, M) giving (quad, half_logdet)), take ``woodbury_loglike_plain``.
+    """
+    from bayesian_inference_tpu_torch.ops import tiny_mvn
+
+    if terms is None and z.shape[-1] <= tiny_mvn.MAX_NB:
+        return tiny_mvn.fused_woodbury_loglike(wn, z, v)
+    return woodbury_loglike_plain(wn, z, v, terms)
+
+
+def woodbury_loglike_plain(wn: WoodburyNormal, z: torch.Tensor, v: torch.Tensor, terms=None) -> torch.Tensor:
+    """The plain chain of ``woodbury_loglike``: r = b + G z and
+    M = G + diag(1/v), the capacitance term +1/2 r^T M^-1 r - 1/2 log det M
+    from one sweep of the tiny-MVN kernel over all walkers (+quad/2 -
+    half_logdet of (r, M); the JAX package needs two calls of its kernel for
+    it, 2 loglike(0, M) - loglike(r, M)), and the rest term by term.
+    ``terms``: another function of (r, M) giving (quad, half_logdet) in the
+    kernel's place.
     """
     from bayesian_inference_tpu_torch.ops.tiny_mvn import mvn_terms
 

@@ -273,6 +273,119 @@ def test_woodbury_loglike_on_the_card_matches_float64(device, k):
     assert float(((ll.double().cpu() - ll64).abs() / scale).max()) <= 1e-4
 
 
+def _woodbury_case(k, B, n_points=None, seed=0, F=300):
+    """A float64 Woodbury likelihood of k PCs on the CPU, with per-point
+    offsets for ``n_points`` points, and the z, v of B walkers ((n_points,
+    B / n_points, k) with points)."""
+    from bayesian_inference_tpu_torch.ops import mvn
+
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(F, F))
+    D = A @ A.T / F + 0.5 * np.eye(F)
+    U = rng.normal(size=(F, k)) * np.exp(-np.arange(k) / 10.0) * 0.2
+    wn64 = mvn.build_woodbury(*(torch.tensor(x) for x in (D, U, rng.normal(size=F))))
+    shape = (B, k)
+    if n_points:
+        wn64 = wn64.with_d0(torch.tensor(rng.normal(size=(n_points, F))))
+        shape = (n_points, B // n_points, k)
+    return wn64, torch.tensor(rng.normal(size=shape)), torch.tensor(rng.uniform(1e-3, 0.1, shape))
+
+
+def _woodbury_on(wn, device, dtype=torch.float32):
+    import dataclasses
+
+    from bayesian_inference_tpu_torch.ops import mvn
+
+    return mvn.WoodburyNormal(**{f.name: getattr(wn, f.name).to(device, dtype) for f in dataclasses.fields(wn)})
+
+
+def _capacitance_scale(wn64, z64, v64):
+    """Per walker, |quad_M| / 2 + |half_logdet_M| of the float64 capacitance
+    term: the scale the card's K4 errors are measured against."""
+    k = z64.shape[-1]
+    b = wn64.b if wn64.b.dim() == 1 else wn64.b[:, None, :]
+    r64 = (b + z64 @ wn64.G).reshape(-1, k)
+    M64 = (wn64.G + torch.diag_embed(1.0 / v64)).reshape(-1, k, k)
+    quad64, hld64 = tiny_mvn.mvn_terms_plain(r64, M64)
+    return (0.5 * quad64.abs() + hld64.abs()).reshape(z64.shape[:-1])
+
+
+@pytest.mark.parametrize("k,B,n_points", [(41, 50, None), (41, 100, None), (56, 50, None), (56, 100, None),
+                                          (64, 50, None), (64, 100, None), (41, 1500, 30)])
+def test_fused_woodbury_kernel_matches_float64(device, k, B, n_points):
+    """The whole Woodbury likelihood from the fused entry, one launch counted
+    under its batch, against the float64 plain chain: per walker, the error
+    over |quad_M| / 2 + |half_logdet_M|, its largest at most twice that of
+    the plain f32 chain on the same operands (r and M in plain torch, K4's
+    standalone entry for the terms) and within 1e-4; per-point b and c0 for
+    30 points of 50 walkers; bit-equal on repeat and in a smaller batch."""
+    import dataclasses
+
+    from bayesian_inference_tpu_torch.ops import mvn
+
+    wn64, z64, v64 = _woodbury_case(k, B, n_points, seed=k + B)
+    wn, z, v = _woodbury_on(wn64, device), z64.float().to(device), v64.float().to(device)
+    before, before_b = tiny_mvn.KERNEL.launches, tiny_mvn.KERNEL.launches_by_batch[B]
+    ll = mvn.woodbury_loglike(wn, z, v)
+    torch.cuda.synchronize()
+    assert tiny_mvn.KERNEL.launches == before + 1 and tiny_mvn.KERNEL.launches_by_batch[B] == before_b + 1
+    assert ll.shape == z.shape[:-1] and ll.dtype == torch.float32 and bool(torch.isfinite(ll).all())
+    plain = mvn.woodbury_loglike_plain(wn, z, v)
+    ll64 = mvn.woodbury_loglike_plain(wn64, z64, v64)
+    scale = _capacitance_scale(wn64, z64, v64)
+    err = float(((ll.double().cpu() - ll64).abs() / scale).max())
+    err_plain = float(((plain.double().cpu() - ll64).abs() / scale).max())
+    assert err <= 2 * err_plain and err <= 1e-4, (err, err_plain)
+    assert torch.equal(ll, mvn.woodbury_loglike(wn, z, v))  # deterministic
+    if n_points:
+        part = dataclasses.replace(wn, b=wn.b[:2].contiguous(), c0=wn.c0[:2].contiguous())
+        assert torch.equal(mvn.woodbury_loglike(part, z[:2].contiguous(), v[:2].contiguous()), ll[:2])
+    else:
+        assert torch.equal(mvn.woodbury_loglike(wn, z[:7].contiguous(), v[:7].contiguous()), ll[:7])
+
+
+@pytest.mark.parametrize("k", [41, 64])
+def test_fused_woodbury_kernel_nan_only_in_the_walker_whose_m_is_not_spd(device, k):
+    """A walker with negative variances (M = G + diag(1/v) not positive
+    definite) reads NaN; every other walker reads what it reads without it."""
+    from bayesian_inference_tpu_torch.ops import mvn
+
+    wn64, z64, v64 = _woodbury_case(k, 6, seed=3)
+    wn, z, v = _woodbury_on(wn64, device), z64.float().to(device), v64.float().to(device)
+    ll = mvn.woodbury_loglike(wn, z, v)
+    v[2] = -v[2]
+    ll_bad = mvn.woodbury_loglike(wn, z, v)
+    torch.cuda.synchronize()
+    others = torch.arange(6, device=device) != 2
+    assert bool(torch.isnan(ll_bad[2])) and torch.equal(ll_bad[others], ll[others])
+
+
+def test_lowrank_run_mcmc_takes_one_fused_launch_per_evaluation_on_the_card(card_analysis):
+    """A lowrank ``run_mcmc`` on a prewarmed program: the step graph has at
+    most 32 nodes (the Woodbury likelihood is one launch), and the fused
+    entry counts two launches per step replayed at the half-ensemble batch
+    and three at the whole ensemble (the initial states of the two burn-in
+    phases and of production); K4's standalone entry never runs."""
+    from bayesian_inference_tpu_torch.mcmc import runner
+    from bayesian_inference_tpu_torch.mcmc.programs import prewarm_sampler_programs
+    from bayesian_inference_tpu_torch.models.emulator import fit_emulators
+
+    emu, mcmc, observables = card_analysis
+    device = torch.device("cuda", 0)
+    artifacts = fit_emulators(emu, n_opt_iters=20, device=device, observables=observables, write=False)
+    programs = prewarm_sampler_programs(mcmc, mode="lowrank", device=device, observables=observables)
+    nodes = sum(programs.graph_nodes.get(kind, 0) for kind in ("kernel", "memcpy", "memset"))
+    assert 0 < nodes <= 32, programs.graph_nodes
+    runner.run_mcmc(mcmc, seed=3, device=device, emulation_results=artifacts, observables=observables,
+                    write=False, programs=programs, mode="lowrank")
+    counters = _last_call("run_mcmc")["counters"]
+    steps, W = mcmc.n_burn_steps + mcmc.n_sampling_steps, mcmc.n_walkers
+    assert counters["replays.sampler"] == steps
+    assert counters.get(f"launches.tiny_mvn.B{W // 2}", 0) == 2 * steps, counters
+    assert counters.get(f"launches.tiny_mvn.B{W}", 0) == 3, counters
+    assert counters["launches.tiny_mvn"] == 2 * steps + 3, counters
+
+
 def test_lml_backward_on_the_card_raises_no_warning(device):
     """The LML's closed-form backward runs on autograd's device thread; in a
     fresh process with warnings as errors, a backward through

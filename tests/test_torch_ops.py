@@ -3,6 +3,8 @@ inverse, kernel K1's fused block-MVN log-likelihood, kernel K4's tiny-MVN
 log-likelihood (plain versions) and the Woodbury likelihood, each against the
 JAX package on the same float64 inputs."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -279,6 +281,96 @@ def test_woodbury_with_d0_matches_a_fresh_build():
     for p in range(2):
         single = twood.woodbury_loglike(wn.with_d0(t64(d0s[p])), t64(z[4 * p:4 * p + 4]), t64(v[4 * p:4 * p + 4]))
         np.testing.assert_allclose(ll[p], to_np(single), rtol=1e-12)
+
+
+def _woodbury_to(wn, to):
+    return twood.WoodburyNormal(**{f.name: getattr(wn, f.name).to(to) for f in dataclasses.fields(wn)})
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("k,n_points", [(6, None), (41, None), (56, None), (64, None), (41, 2)])
+def test_woodbury_loglike_on_the_cpu_is_the_plain_chain(k, n_points, dtype):
+    """On the CPU the fused route (up to MAX_NB PCs, no ``terms``) is the
+    plain chain, bit for bit, for one offset and for per-point offsets."""
+    D, U, d0, z, v = _woodbury_operands(24 + k, k=k, B=8)
+    wn = twood.build_woodbury(t64(D), t64(U), t64(d0))
+    z, v = t64(z), t64(v)
+    if n_points:
+        wn = wn.with_d0(t64(np.random.default_rng(k).normal(size=(n_points, d0.size))))
+        z, v = z.reshape(n_points, -1, k), v.reshape(n_points, -1, k)
+    wn = _woodbury_to(wn, dtype)
+    ll = twood.woodbury_loglike(wn, z.to(dtype), v.to(dtype))
+    assert ll.shape == z.shape[:-1] and ll.dtype == dtype
+    assert torch.equal(ll, twood.woodbury_loglike_plain(wn, z.to(dtype), v.to(dtype)))
+    assert torch.equal(ll, tiny_mvn.fused_woodbury_loglike(wn, z.to(dtype), v.to(dtype)))
+
+
+def _fused_refused(*args, **kwargs):
+    raise AssertionError("the fused entry was called")
+
+
+@pytest.mark.parametrize("case", ["wide", "terms", "wide_meta", "terms_meta"])
+def test_woodbury_loglike_routes_wide_and_custom_terms_to_the_plain_chain(monkeypatch, case):
+    """Capacitance matrices wider than MAX_NB and a caller's own ``terms``
+    take the plain chain whatever the device: with the fused entry patched
+    to raise, the CPU result is the plain chain's, and on the meta device
+    the chain's own terms function is the one called."""
+    k = tiny_mvn.MAX_NB + 1 if case.startswith("wide") else 6
+    D, U, d0, z, v = _woodbury_operands(25, k=k)
+    wn = twood.build_woodbury(t64(D), t64(U), t64(d0))
+    z, v = t64(z), t64(v)
+    monkeypatch.setattr(tiny_mvn, "fused_woodbury_loglike", _fused_refused)
+    calls = []
+
+    def recorded(r, M):
+        calls.append(tuple(M.shape))
+        return tiny_mvn.mvn_terms_plain(r, M) if r.device.type == "cpu" else (r.sum(-1), r.sum(-1))
+
+    terms = recorded if case.startswith("terms") else None
+    if case.endswith("meta"):
+        wn = _woodbury_to(wn, "meta")
+        z, v = z.to("meta"), v.to("meta")
+        if terms is None:
+            monkeypatch.setattr(tiny_mvn, "mvn_terms", recorded)
+    ll = twood.woodbury_loglike(wn, z, v, terms=terms)
+    assert ll.shape == z.shape[:-1] and ll.device == z.device
+    if case.endswith("meta"):
+        assert calls == [(z.shape[0], k, k)]
+    else:
+        assert torch.equal(ll, twood.woodbury_loglike_plain(wn, z, v, terms=terms))
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_woodbury_loglike_takes_the_fused_entry_up_to_max_nb(monkeypatch, device):
+    """Up to MAX_NB PCs and without ``terms`` the likelihood is one call of
+    the fused entry, on every device (which then routes by device)."""
+    D, U, d0, z, v = _woodbury_operands(26, k=tiny_mvn.MAX_NB)
+    wn = twood.build_woodbury(t64(D), t64(U), t64(d0))
+    wn = _woodbury_to(wn, device)
+    monkeypatch.setattr(tiny_mvn, "fused_woodbury_loglike", _fused_refused)
+    with pytest.raises(AssertionError, match="fused entry"):
+        twood.woodbury_loglike(wn, t64(z).to(device), t64(v).to(device))
+
+
+def test_fused_woodbury_rows_follow_the_per_point_shapes():
+    """The fused launch's batch and rows per b row, from the shapes that
+    ``with_d0`` makes (as in test_woodbury_with_d0_matches_a_fresh_build):
+    a (k,) b serves every walker, a (P, k) b the Wh walkers of its point;
+    shapes the kernel does not take are refused."""
+    D, U, d0, z, v = _woodbury_operands(22, B=8)
+    k = U.shape[1]
+    wn = twood.build_woodbury(t64(D), t64(U), t64(d0))
+    batched = wn.with_d0(t64(np.random.default_rng(23).normal(size=(2, d0.size))))
+    z, v = t64(z), t64(v)
+    assert tiny_mvn.woodbury_rows(wn, z, v) == (8, 8)
+    assert tiny_mvn.woodbury_rows(wn, z.reshape(2, 4, k), v.reshape(2, 4, k)) == (8, 8)
+    assert tiny_mvn.woodbury_rows(batched, z.reshape(2, 4, k), v.reshape(2, 4, k)) == (8, 4)
+    for bad_wn, bad_z, bad_v in ((batched, z, v), (batched, z.reshape(4, 2, k), v.reshape(4, 2, k)),
+                                 (wn, z, v[:, :-1]), (wn, z[:, :-1], v[:, :-1]),
+                                 (dataclasses.replace(batched, c0=batched.c0[:1]), z.reshape(2, 4, k),
+                                  v.reshape(2, 4, k))):
+        with pytest.raises(ValueError, match="shape mismatch"):
+            tiny_mvn.woodbury_rows(bad_wn, bad_z, bad_v)
 
 
 def test_kernel_wrappers_reject_other_devices():
