@@ -76,16 +76,34 @@ def off_line(x_prev: torch.Tensor, x_next: torch.Tensor, a: float = 2.0, rtol: f
              block: int = 2**24) -> int:
     """The moves that no stretch move could make, judged without the draws:
     walkers whose position after a step (``x_next``, (T, W, d), float64) is
-    not their position before it (``x_prev``) and lies on no line through it
-    from another walker, before or after the step, at a stretch z in
-    [1/a, a]. Each coordinate is measured in units of its points' magnitudes
-    (the walker's before and after, the other's), in which the program's
-    float32 proposal x_c + z (x - x_c) is off its line by at most 2 a
-    roundings; z is fitted in those units, and ``rtol`` is the tolerance
-    there. Rows are taken ``block`` elements at a time. A count."""
+    not their position before it (``x_prev``) and lies farther than ``rtol``
+    from every stretch segment through it, the points c + z (x - c) with z in
+    [1/a, a] of another walker c, before or after the step. Rows are taken
+    ``block`` elements at a time. A count.
+
+    Each coordinate is measured in units of its points' magnitudes,
+    scale = |c| + |x| + |y| for the walker's x before and y after: v = (x - c)
+    / scale, w = (y - c) / scale. z is fitted by least squares, z* = v.w / v.v,
+    and clamped to [1/a, a]; the move is on the segment when
+    |w - clamp(z*) v| <= rtol in every coordinate.
+
+    The bound a sound move keeps. The program proposes y = fl(c + fl(z
+    fl(x - c))) in float32, from a float32 z in [1/a, a] (for a = 2 exactly:
+    s = fl(u + 1) lies in [1, 2], fl(s s) <= 4 and the halving is exact), so
+    w = z v + e with |e_i| at most 2 a roundings (2^-24) in these units. The
+    fitted z* differs from z by e's projection on v, v.e / v.v; the clamp only
+    brings it nearer z, so |clamp(z*) - z| ||v|| <= |v.e| / ||v|| <= ||e||, and
+    the residual e + (z - clamp(z*)) v is at most |e_i| + ||e|| <=
+    (1 + sqrt(d)) 2 a roundings in a coordinate: 14 * 2^-24 for a = 2 and
+    d = 6, against rtol = 128 * 2^-24. A test of z* itself against [1/a, a]
+    holds no such bound: z*'s own error, ||e|| / ||v||, grows without limit as
+    two walkers come close against their coordinates' magnitudes. For a != 2
+    the program's z may pass a or 1/a by a rounding; that moves the residual by
+    a rounding of |v_i| <= 1, inside the same budget. A point that no segment
+    reaches within rtol (a stretch beyond [1/a, a], a point pushed off its line,
+    a walker put where no partner's line goes) is counted."""
     T, W, d = x_prev.shape
     not_self = ~torch.eye(W, dtype=torch.bool, device=x_prev.device).repeat(1, 2)      # (W, 2W)
-    lo, hi = (1.0 - 1e-6) / a, a * (1.0 + 1e-6)
     rows = max(1, block // (2 * W * W * d))
     count = 0
     for s in range(0, T, rows):
@@ -95,8 +113,8 @@ def off_line(x_prev: torch.Tensor, x_next: torch.Tensor, a: float = 2.0, rtol: f
         scale = (cand.abs() + xp[:, :, None].abs() + xn[:, :, None].abs()).clamp_min(torch.finfo(xp.dtype).tiny)
         v, w = (xp[:, :, None] - cand) / scale, (xn[:, :, None] - cand) / scale        # (t, W, 2W, d)
         vv = (v * v).sum(-1)
-        z = (v * w).sum(-1) / vv.clamp_min(torch.finfo(v.dtype).tiny)
+        z = ((v * w).sum(-1) / vv.clamp_min(torch.finfo(v.dtype).tiny)).clamp(1.0 / a, a)
         on = torch.all((w - z[..., None] * v).abs() <= rtol, dim=-1)
-        ok = on & (vv > 0) & (z >= lo) & (z <= hi) & not_self
+        ok = on & (vv > 0) & not_self
         count += int((moved & ~ok.any(-1)).sum())
     return count
