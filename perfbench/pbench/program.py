@@ -56,6 +56,7 @@ def config_dict(cfg: dict, traffic: dict, table_dir: str, work_dir: str) -> dict
                                                        "min": list(cfg["prior_min"]), "max": list(cfg["prior_max"])}},
         "validation_indices": list(cfg["validation_indices"]),
         "design_points_to_exclude": list(cfg["design_points_to_exclude"]),
+        **({"cuts": {key: list(rng) for key, rng in cfg["cuts"].items()}} if cfg.get("cuts") else {}),
         "parameters": {
             "emulators": emulators,
             "mcmc": {

@@ -1,6 +1,8 @@
 """The analysis' data, read from the table files as the JETSCAPE-STAT format
 defines them: per emulation group the training and validation prediction
-matrices, and the experimental values and errors of every selected bin.
+matrices, and the experimental values and errors of every selected bin:
+the labels the group selects, less the bins outside the analysis' x-range
+cuts, less a label that the cuts leave empty.
 
 Independent of the port's ingest. Feature order within a group does not
 enter any number the reference compares (PCA, the GP fits and the
@@ -70,6 +72,16 @@ def _selected(label: str, config: dict, group: dict) -> bool:
     return _matches(label, group["observable_list"]) and not _matches(label, group.get("observable_exclude_list", []))
 
 
+def kept_bins(label: str, data: np.ndarray, config: dict) -> np.ndarray:
+    """The bins of ``label`` that the analysis' x-range ``cuts`` keep: for
+    each key the label contains, those with xmin >= lo and xmax <= hi."""
+    keep = np.ones(data.shape[0], dtype=bool)
+    for key, (lo, hi) in config.get("cuts", {}).items():
+        if key in label:
+            keep &= (lo <= data[:, 0]) & (data[:, 1] <= hi)
+    return keep
+
+
 def _ids(path: str, marker: str) -> np.ndarray:
     with open(path) as f:
         for line in f:
@@ -96,7 +108,7 @@ def read(table_dir: str, config: dict) -> Data:
     groups, selected = [], []
     for gname, g in config["emulators"].items():
         labels = sort_labels([lbl for lbl in all_labels if _selected(lbl, config, g)])
-        Ys, Yv, ye, ys, widths = [], [], [], [], []
+        Ys, Yv, ye, ys, widths, kept = [], [], [], [], [], []
         for lbl in labels:
             data = np.loadtxt(os.path.join(table_dir, "Data", f"Data__{lbl}.dat"), ndmin=2)
             pred_path = os.path.join(table_dir, "Prediction", f"Prediction__{param}__{lbl}__values.dat")
@@ -104,14 +116,19 @@ def read(table_dir: str, config: dict) -> Data:
             pred_ids = _ids(pred_path, "design_point")
             if not np.array_equal(pred_ids, ids):
                 raise ValueError(f"{lbl}: prediction columns are not the design's")
+            rows = kept_bins(lbl, data, config)
+            if not rows.any():
+                continue                                 # no bins left after the cuts: the label goes
+            data, pred = data[rows], pred[rows]
+            kept.append(lbl)
             Ys.append(pred[:, train_cols].T)
             Yv.append(pred[:, val_cols].T)
             ye.append(data[:, 2])
             ys.append(data[:, 3])
             widths.append(data.shape[0])
-        groups.append(Group(gname, int(g["n_pc"]), labels, widths, np.concatenate(Ys, axis=1),
+        groups.append(Group(gname, int(g["n_pc"]), kept, widths, np.concatenate(Ys, axis=1),
                             np.concatenate(Yv, axis=1), np.concatenate(ye), np.concatenate(ys)))
-        selected.extend(labels)
+        selected.extend(kept)
     return Data(design=theta[train_cols], design_val=theta[val_cols], groups=groups, labels=sort_labels(selected))
 
 

@@ -25,21 +25,37 @@ def proposals(x_prev: np.ndarray, x_next: np.ndarray, draws: dict[str, np.ndarra
     """The points row ``t`` of the draws proposes, from the program's states
     ``x_prev`` (W, d) before the step and ``x_next`` after it: the walkers in
     permuted order ``xp``, the program's result ``xn`` in that order, and per
-    half its stretch ``z`` and proposals ``y``."""
+    half its stretch ``z`` and proposals ``y``, and ``y32``, the proposals as
+    the configuration's float32 rounds them (``float32_proposals``)."""
     h = x_prev.shape[0] // 2
     perm = np.asarray(draws["perm"][t], np.int64)
     xp = torch.tensor(x_prev[perm], dtype=F64)
     xn = torch.tensor(x_next[perm], dtype=F64)
-    out = {"xp": xp, "xn": xn, "z": [], "y": []}
+    out = {"xp": xp, "xn": xn, "z": [], "y": [], "y32": []}
     for half in (0, 1):
         upd = xp[:h] if half == 0 else xp[h:]
         comp = xp[h:] if half == 0 else xn[:h]           # the second half moves against the updated first
-        u = torch.tensor(np.asarray(draws["u_z"][t, half], np.float64))
-        z = ((a - 1.0) * u + 1.0) ** 2 / a
+        u = np.asarray(draws["u_z"][t, half])
+        z = ((a - 1.0) * torch.tensor(u, dtype=F64) + 1.0) ** 2 / a
         xc = comp[torch.tensor(np.asarray(draws["partners"][t, half], np.int64))]
         out["z"].append(z)
         out["y"].append(xc + z[:, None] * (upd - xc))
+        out["y32"].append(float32_proposals(upd, xc, u, a))
     return out
+
+
+def float32_proposals(x: torch.Tensor, xc: torch.Tensor, u: np.ndarray, a: float = 2.0) -> torch.Tensor:
+    """The stretch proposals in float32, each operation rounded to nearest
+    in this order: s = fl(fl((a - 1) u) + 1), z = fl(fl(s s) / a) and
+    y = fl(x_c + fl(z fl(x - x_c))). For a stretch within a rounding or two
+    of 1 this y is the start x itself, bit for bit, where the float64
+    proposal lies a few roundings away from it."""
+    f32 = torch.float32
+    am1, inv_a = torch.tensor(a - 1.0, dtype=f32), torch.tensor(1.0 / a, dtype=f32)
+    s = torch.tensor(np.asarray(u, np.float32)) * am1 + 1.0
+    z = (s * s) * inv_a
+    x32, c32 = x.to(f32), xc.to(f32)
+    return (c32 + z[:, None] * (x32 - c32)).to(F64)
 
 
 def judge_step(p: dict, lp_cur: torch.Tensor, lp_y: list[torch.Tensor], draws: dict[str, np.ndarray], t: int,
@@ -51,7 +67,11 @@ def judge_step(p: dict, lp_cur: torch.Tensor, lp_y: list[torch.Tensor], draws: d
     from the reference's where its log ratio lies more than ``margin`` from
     log u_acc, and moves to a point more than ``pos_tol`` box widths
     (``width`` (d,)) from the reference's proposal; and the largest such
-    distance of a move both took."""
+    distance of a move both took.
+
+    A walker that stays where the reference accepts is no mismatch only where
+    its float32 proposal (``y32``) is its start exactly: there the accepted
+    move leaves it where it was. Any other stay against an accept is one."""
     xp, xn = p["xp"], p["xn"]
     W, d = xp.shape
     h = W // 2
@@ -63,7 +83,8 @@ def judge_step(p: dict, lp_cur: torch.Tensor, lp_y: list[torch.Tensor], draws: d
         log_u = torch.log(torch.tensor(np.asarray(draws["u_acc"][t, half], np.float64)))
         accept_ref = log_u < ratio
         moved = torch.any(xn[sl] != xp[sl], dim=-1)
-        clear = (ratio - log_u).abs() > margin
+        at_start = torch.all(p["y32"][half] == xp[sl], dim=-1)
+        clear = ((ratio - log_u).abs() > margin) & ~(accept_ref & ~moved & at_start)
         gap = ((xn[sl] - y).abs() / torch.tensor(width, dtype=F64)).amax(-1)
         both = moved & accept_ref
         mismatches += int(((accept_ref != moved) & clear).sum()) + int((both & (gap > pos_tol)).sum())

@@ -114,11 +114,60 @@ def test_every_cell_reports_what_it_has_to(bench):
     assert len(four) <= max(1, len(bench["workloads"]) // 4)
 
 
-def test_configs_state_what_they_are(bench):
+def plain_name(label: str) -> str:
+    """A parameter's name without its LaTeX, superscript, underscores and
+    case, so that the yaml's ``$\\alpha_S^{\\rm{fix}}$`` and a configuration's
+    ``alpha_s`` both read ``alphas``."""
+    return re.sub(r"[$\\{}_]", "", label.split("^")[0]).lower()
+
+
+@pytest.fixture(scope="module")
+def yaml_analyses() -> dict:
+    import yaml
+
+    with open(ROOT / "config" / "jet_substructure.yaml") as f:
+        return yaml.safe_load(f)["analyses"]
+
+
+def test_configs_state_what_they_are(bench, yaml_analyses):
+    """Each configuration is held to the yaml analysis it names: the values
+    it shares with it are the yaml's, and every key it changes is listed in
+    ``reduced`` and stated in ``assumed``."""
     for c in bench["configs"]:
         with open(ROOT / c["file"]) as f:
             cfg = json.load(f)
         assert cfg["reduced"] == c["reduced"]
         assert cfg["assumed"] and cfg["source"] == c["source"]
         assert cfg["likelihood_mode"] in ("block", "lowrank")
-        assert sum(g["n_pc"] for g in cfg["emulators"].values()) == 41
+        assert cfg["analysis"] in yaml_analyses and cfg["analysis"] in cfg["source"], c["name"]
+        ref = yaml_analyses[cfg["analysis"]]
+        pars, groups = ref["parameterization"][cfg["parameterization"]], ref["parameters"]["emulators"]
+        assert cfg["parameterization"] in ref["parameterizations"]
+        assert [plain_name(n) for n in cfg["parameter_names"]] == [plain_name(n) for n in pars["names"]], c["name"]
+        assert (cfg["prior_min"], cfg["prior_max"]) == (pars["min"], pars["max"]), c["name"]
+        for key in ("sqrts_list", "centrality_range", "validation_indices"):
+            assert cfg[key] == ref[key], (c["name"], key)
+        assert cfg["n_walkers"] == ref["parameters"]["mcmc"]["n_walkers"], c["name"]
+        k = cfg["kernel"]
+        for gname, g in groups.items():
+            kernels = g["kernels"]
+            assert (list(k["active"]), k["nu"], list(k["length_scale_bounds_factor"])) == (
+                kernels["active"], kernels["matern"]["nu"], kernels["matern"]["length_scale_bounds_factor"]), gname
+            assert (k["noise_level"], list(k["noise_level_bounds"])) == (
+                kernels["noise"]["args"]["noise_level"], kernels["noise"]["args"]["noise_level_bounds"]), gname
+            assert cfg["n_restarts"] == g["GPR"]["n_restarts"], gname
+        assert [g["n_pc"] for g in cfg["emulators"].values()] == [g["n_pc"] for g in groups.values()], c["name"]
+        if "cuts" not in cfg["reduced"]:
+            assert cfg.get("cuts", {}) == ref.get("cuts", {}), c["name"]
+        if "emulators" not in cfg["reduced"]:
+            assert list(cfg["emulators"]) == list(groups), c["name"]
+            for gname, g in groups.items():
+                assert cfg["emulators"][gname]["observable_list"] == g["observable_list"], (c["name"], gname)
+                assert cfg["emulators"][gname].get("observable_exclude_list", []) == \
+                    g.get("observable_exclude_list", []), (c["name"], gname)
+        # every key in reduced is named, before the colon, by an entry of
+        # assumed (a changed group of emulators by its group's name)
+        heads = [re.split(r"\W+", a.split(":")[0]) for a in cfg["assumed"]]
+        for key in cfg["reduced"]:
+            names = {key, *(cfg["emulators"] if key == "emulators" else ())}
+            assert any(names & set(h) for h in heads), (c["name"], key)
